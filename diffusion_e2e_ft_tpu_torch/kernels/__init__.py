@@ -1,0 +1,5 @@
+"""Attention dispatch, the Hopper flash-attention kernel, and GroupNorm."""
+
+from diffusion_e2e_ft_tpu_torch.kernels.attention import attention, in_kernel_envelope
+
+__all__ = ["attention", "in_kernel_envelope"]

@@ -1,0 +1,141 @@
+"""Where the time goes in a bf16 serving request of the PyTorch port, on one GPU.
+
+    python3 perf/torch_profile_serve.py [--out chiprun_out/torch_profile.txt]
+
+A full-width SD2 Marigold pipeline (`UNetConfig.sd2()`, `VAEConfig()`) with
+seeded random weights runs in bf16 on `cuda:0`. For 768x768 and then 576x768
+(the reference's resolution) it prints:
+
+- the first depth request at that shape (host clock, synchronized), then the
+  median of three warm ones;
+- the device body's stage split, VAE encode / UNet / VAE decode, from CUDA
+  events around each stage, median of 5;
+- over 3 warm `MarigoldPipeline.__call__` requests under
+  torch.profiler: host wall time, summed kernel time, the idle share
+  1 - kernel time / wall, and kernel time grouped by kind.
+
+The profiler's per-op tables go to `--out`. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
+from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+RESOLUTIONS = ((768, 768), (576, 768))  # in order: the second shows the first request at a new shape
+REQUESTS = 3  # warm requests under the profiler
+
+# kernel-name substrings -> kind, first match wins
+KINDS = (
+    ("flash attention (ours)", ("flash_fwd_kernel",)),
+    ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions", ("fprop", "conv", "cudnn", "dgrad")),
+    ("GEMMs", ("gemm", "cutlass", "cublas", "nvjet")),
+    ("memcpy / memset", ("Memcpy", "Memset")),
+    ("elementwise and reductions", ("elementwise", "reduce", "copy", "upsample")),
+)
+
+
+def kind_of(name: str) -> str:
+    for kind, keys in KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def synced_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@torch.inference_mode()
+def stage_split(pipe: MarigoldPipeline, img: np.ndarray, reps: int = 5) -> list:
+    """Median encode / UNet / decode device ms of the one-step device body."""
+    rgb = torch.from_numpy(img.astype(np.float32)).cuda()[None] / 127.5 - 1.0
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        x = rgb.to(pipe.dtype).permute(0, 3, 1, 2)
+        ev[0].record()
+        lat = pipe.vae.encode_mean(x) * pipe.latent_scale_factor
+        ev[1].record()
+        context = pipe.empty_text_embed.expand(1, -1, -1)
+        out = pipe.unet(torch.cat([lat, torch.zeros_like(lat)], dim=1), 999, context)
+        ev[2].record()
+        pipe.vae.decode(out / pipe.latent_scale_factor)
+        ev[3].record()
+        torch.cuda.synchronize()
+        times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    return [statistics.median(col) for col in zip(*times)]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/torch_profile.txt", help="per-op tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_serve: needs a CUDA device")
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    pipe = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=0, device="cuda",
+                                        dtype=torch.bfloat16)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as tables:
+        for hw in RESOLUTIONS:
+            res = f"{hw[0]}x{hw[1]}"
+            img = np.random.default_rng(0).integers(0, 256, (*hw, 3), dtype=np.uint8)
+
+            def request():
+                return pipe(img, processing_res=max(hw), color_map=None)
+
+            first = synced_ms(request)
+            warm = statistics.median(synced_ms(request) for _ in range(3))
+            print(f"[{res}] first request {first:.2f} ms, warm median of 3 {warm:.2f} ms", flush=True)
+            enc, unet, dec = stage_split(pipe, img)
+            print(f"[{res}] device body, CUDA events, median of 5: encode {enc:.2f} ms, "
+                  f"UNet {unet:.2f} ms, decode {dec:.2f} ms", flush=True)
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(REQUESTS):
+                    request()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.device_time for e in kernels) / 1e3
+            print(f"[{res}] profiler, {REQUESTS} requests: wall {wall:.1f} ms, kernel time "
+                  f"{busy:.1f} ms, idle share {1.0 - busy / wall:.3f}", flush=True)
+            by_kind: dict = {}
+            for e in kernels:
+                by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + e.device_time / 1e3
+            for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+                print(f"[{res}]   {kind:28s} {ms / REQUESTS:8.2f} ms per request", flush=True)
+            tables.write(f"== {res}, {REQUESTS} requests\n")
+            tables.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40,
+                                                   max_name_column_width=90))
+            tables.write("\n")
+    print(f"per-op tables: {args.out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

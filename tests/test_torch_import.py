@@ -1,0 +1,50 @@
+"""The torch port imports without JAX: every module loads in a process where
+`jax`, `jaxlib`, `flax`, `optax` and `orbax` cannot be imported. A subprocess,
+because this test process already imported jax (tests/conftest.py)."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import diffusion_e2e_ft_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(
+            diffusion_e2e_ft_tpu_torch.__path__, prefix="diffusion_e2e_ft_tpu_torch."
+        )
+    )
+
+
+def test_port_modules_listed():
+    mods = _port_modules()
+    for expected in (
+        "diffusion_e2e_ft_tpu_torch.kernels.flash_attention",
+        "diffusion_e2e_ft_tpu_torch.pipelines.loading",
+        "diffusion_e2e_ft_tpu_torch.cli.serve",
+    ):
+        assert expected in mods
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {_port_modules()!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "assert not any(m == 'diffusion_e2e_ft_tpu' or m.startswith('diffusion_e2e_ft_tpu.')\n"
+        "               for m in sys.modules), 'the port imported the JAX package'\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
