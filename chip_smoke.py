@@ -6,18 +6,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build: the CUDA sources under `diffusion_e2e_ft_tpu_torch/csrc/` with nvcc;
-3. the flash-attention kernel against its plain PyTorch version on the card,
-   fp32 and bf16, at the main path's attention shapes (768x768 and 576x768,
-   whose 432-token level is ragged for the kernel's tiles) and ragged ones:
-   max |delta| against the plain version in fp32, and both times (CUDA events);
-4. end-to-end parity, fp32 with TF32 off: a full-width SD2 Marigold pipeline
+3. the flash-attention forward kernel against its plain PyTorch version on
+   the card, fp32 and bf16, at the serving path's attention shapes (768x768
+   and 576x768, whose 432-token level is ragged for the kernel's tiles) and
+   ragged ones: max |delta| against the plain version in fp32, and both times
+   (CUDA events);
+4. the backward kernels (forward+LSE, dq, dk/dv) through the autograd
+   Function, against plain fp32 autograd on `flash_attention_reference`, at
+   the 480x640 training shapes and ragged ones, fp32 and bf16, bounded by
+   max |delta| / max(1, max |plain|); each kernel's time beside its plain
+   version's;
+5. end-to-end parity, fp32 with TF32 off: a full-width SD2 Marigold pipeline
    with seeded random weights runs one 256x256 image, depth and normals, on
    the CPU (plain path) and on the GPU (kernel path, 12 kernel launches each);
-5. serving, the main path: the same weights written as an HF pipeline
+6. serving, slice A's main path: the same weights written as an HF pipeline
    directory (bf16 `.bin` files), loaded with `MarigoldPipeline.from_hf_dir`
    on the GPU in bf16, and a `PipelineService` answering 768x768 depth,
    768x768 normals and 576x768 depth requests (17 kernel launches each), with
-   latency and peak device memory.
+   latency and peak device memory;
+7. training parity, fp32 with TF32 off: one E2E train step's loss and
+   gradients (full-width SD2 UNet and VAE, seeded random weights, 256x256,
+   depth and normals, a mask with invalid pixels, UNet checkpointing) on the
+   CPU (plain path) and on the GPU (kernels), the launches of each kernel, and
+   a non-zero gradient at every UNet kernel site's q/k/v projections;
+8. training, slice D1's main path: `E2ETrainer` + `run_training` at 480x640,
+   batch 2, bf16 compute with fp32 master weights, on synthetic batches, with
+   the launches of each kernel per step, ms/step, img/s and peak device
+   memory; then two micro-steps with gradient accumulation 2, where only the
+   second moves the weights.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is `{"ok": true, "device": {...}}`.
@@ -25,6 +41,7 @@ last line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -61,6 +78,31 @@ ATTN_CASES = [  # (B, L, N, D); the kernel's tiles are 64 rows at d=64, 32 (bf16
 ]
 SITES_256 = 12  # kernel launches for one 256x256 image
 SITES_768 = 17  # kernel launches for one 768x768 or 576x768 image
+BWD_CASES = [  # (B, L, N, D): the 480x640 bs-2 training sites, then ragged ones
+    (2, 4800, 5, 64),  # UNet level 0
+    (2, 1200, 10, 64),  # level 1
+    (2, 300, 20, 64),  # level 2, ragged: 4 * 64 + 44
+    (2, 4800, 1, 512),  # VAE decoder mid (differentiated)
+    (2, 300, 3, 64),
+    (3, 300, 1, 512),  # ragged: 18 * 16 + 12 (fp32), 9 * 32 + 12 / 18 * 16 + 12 (bf16)
+]
+# Kernel launches of one train step with UNet checkpointing: the frozen
+# encoder's mid attention takes the plain forward; each UNet kernel site runs
+# forward+LSE twice (the checkpoint recomputes it) and the backward once; the
+# decoder's mid attention runs forward+LSE and the backward once.
+def step_launches(unet_sites: int) -> dict:
+    return {"flash_attention_fwd": 1, "flash_attention_fwd_lse": 2 * unet_sites + 1,
+            "flash_attention_bwd_dq": unet_sites + 1, "flash_attention_bwd_dkv": unet_sites + 1}
+
+
+UNET_SITES_256 = 10  # UNet self-attention sites in the kernels' envelope at 256x256 (1024 and 256 tokens)
+UNET_SITES_480x640 = 15  # ... at 480x640 (4800, 1200 and 300 tokens)
+# GPU vs CPU, fp32, relative; read 1.2e-7, 1.9e-4 and 1.9e-4 at most on the H100 (cuDNN vs CPU conv order)
+TRAIN_PARITY_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-3, "leaf": 2e-3}
+PARITY_LEAVES = ["conv_in.weight"] + [
+    f"down_blocks.0.attentions.0.transformer_blocks.0.attn1.{p}.weight" for p in ("to_q", "to_k", "to_v", "to_out.0")
+]
+TRAIN_STEPS = 5  # optimizer steps on the training main path (the first is the warm-up)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -114,6 +156,67 @@ def phase_kernels(fa) -> dict:
     return {"max_abs_err": worst, "ms": serving[0], "plain_ms": serving[1]}
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |got - want|, that divided by max(1, max |want|)), in fp32."""
+    err = (got.float() - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def phase_backward(fa) -> dict:
+    """forward+LSE, dq and dk/dv kernels (through the autograd Function) against
+    plain fp32 autograd on `flash_attention_reference`, and their times."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {name: 0.0 for name in ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    times = {}
+    for dtype, bound in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
+        for shape in BWD_CASES:
+            q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            ref_out = fa.flash_attention_reference(*leaves)
+            ref = (ref_out.detach(), fa.flash_attention_fwd_lse_reference(*leaves)[1].detach(),
+                   *torch.autograd.grad(ref_out, leaves, do.float()))
+            out, lse = fa.flash_attention_fwd_lse(q, k, v)
+            inputs = [t.clone().requires_grad_() for t in (q, k, v)]
+            grads = torch.autograd.grad(fa.flash_attention_autograd(*inputs), inputs, do)
+            torch.cuda.synchronize()
+            errs = {}
+            for label, got, want in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), ref):
+                check(bool(torch.isfinite(got).all()), f"{label} not finite at {shape} {dtype}")
+                check(got.dtype == (torch.float32 if label == "lse" else dtype), f"{label} dtype {got.dtype}")
+                errs[label] = rel_err(got, want)
+                check(errs[label][1] <= bound,
+                      f"{label} kernel vs plain max|d|/max(1,|plain|) {errs[label][1]} > {bound} at {shape} {dtype}")
+            for name, labels in (("flash_attention_fwd_lse", ("out", "lse")), ("flash_attention_bwd_dq", ("dq",)),
+                                 ("flash_attention_bwd_dkv", ("dk", "dv"))):
+                worst[name] = max(worst[name], *(errs[x][0] for x in labels))
+            del leaves, ref_out, ref, inputs, grads
+
+            # times: each kernel alone, against the plain version of the same function
+            delta = (do.float() * out.float()).sum(-1)
+            plain = [t.clone().requires_grad_() for t in (q, k, v)]
+            plain_out = fa.flash_attention_reference(*plain)
+            t = {
+                "flash_attention_fwd_lse": (time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v)),
+                                            time_ms(lambda: fa.flash_attention_fwd_lse_reference(q, k, v))),
+                "flash_attention_bwd_dq": (
+                    time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+                    time_ms(lambda: torch.autograd.grad(plain_out, plain[0], do, retain_graph=True))),
+                "flash_attention_bwd_dkv": (
+                    time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
+                    time_ms(lambda: torch.autograd.grad(plain_out, plain[1:], do, retain_graph=True))),
+                "backward": (time_ms(lambda: fa.flash_attention_bwd(q, k, v, do, out, lse)),
+                             time_ms(lambda: torch.autograd.grad(plain_out, plain, do, retain_graph=True))),
+            }
+            print(f"[bwd] {str(dtype):15s} B,L,N,D={shape}: max|d|/max(1,|plain|) "
+                  + ", ".join(f"{x} {e[1]:.2e}" for x, e in errs.items()) + f" (bound {bound}); ms kernel/plain: "
+                  + ", ".join(f"{n.replace('flash_attention_', '')} {a:.3f}/{b:.3f}" for n, (a, b) in t.items()),
+                  flush=True)
+            if dtype == torch.bfloat16 and shape == BWD_CASES[0]:
+                times = t
+            del q, k, v, do, out, lse, delta, plain, plain_out
+    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1]} for name in worst}
+
+
 def phase_e2e_parity(fa):
     from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
@@ -132,7 +235,7 @@ def phase_e2e_parity(fa):
         fa.reset_launches()
         got = gpu.infer(rgb.cuda(), normals=task == "normals")
         torch.cuda.synchronize()
-        launches = fa.launches
+        launches = fa.launches["flash_attention_fwd"]
         err = (got.cpu() - ref).abs().max().item()
         inside = ((ref > 0) & (ref < 1)).float().mean().item()
         bound = E2E_BOUNDS[task]
@@ -148,25 +251,15 @@ def write_checkpoint(path: str, pipe, text_config) -> None:
     """HF pipeline directory of the pipeline's weights in bf16 `.bin` files,
     plus a text encoder with seeded random weights."""
     from diffusion_e2e_ft_tpu_torch.models import clip
+    from diffusion_e2e_ft_tpu_torch.pipelines import loading
     from diffusion_e2e_ft_tpu_torch.pipelines.marigold import init_random_
 
-    u, v, t = pipe.unet.config, pipe.vae.config, text_config
+    t = text_config
     te = clip.CLIPTextModel(t)
     init_random_(te, torch.Generator().manual_seed(1))
     configs = {
-        "unet": {
-            "in_channels": u.in_channels, "out_channels": u.out_channels,
-            "block_out_channels": list(u.block_out_channels), "layers_per_block": u.layers_per_block,
-            "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D" for a in u.cross_attention_levels],
-            "attention_head_dim": list(u.num_attention_heads), "cross_attention_dim": u.cross_attention_dim,
-            "norm_num_groups": u.norm_num_groups, "norm_eps": u.norm_eps, "use_linear_projection": True,
-            "flip_sin_to_cos": u.flip_sin_to_cos, "freq_shift": u.freq_shift,
-        },
-        "vae": {
-            "in_channels": v.in_channels, "out_channels": v.out_channels, "latent_channels": v.latent_channels,
-            "block_out_channels": list(v.block_out_channels), "layers_per_block": v.layers_per_block,
-            "norm_num_groups": v.norm_num_groups, "scaling_factor": v.scaling_factor,
-        },
+        "unet": loading.unet_config_to_hf(pipe.unet.config),
+        "vae": loading.vae_config_to_hf(pipe.vae.config),
         "text_encoder": {
             "vocab_size": t.vocab_size, "hidden_size": t.hidden_size, "num_hidden_layers": t.num_layers,
             "num_attention_heads": t.num_heads, "intermediate_size": t.intermediate_size,
@@ -217,14 +310,14 @@ def phase_serving(fa, fp32_pipe) -> int:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()  # the main path's run starts here
     for task, hw in requests:
-        before = fa.launches
+        before = fa.launches["flash_attention_fwd"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = service.predict(images[hw], normals=task == "normals")
         torch.cuda.synchronize()
         latencies.setdefault((task, hw), []).append((time.perf_counter() - t0) * 1e3)
-        check(fa.launches - before == SITES_768,
-              f"{task} {hw}: {fa.launches - before} kernel launches, expected {SITES_768}")
+        done = fa.launches["flash_attention_fwd"] - before
+        check(done == SITES_768, f"{task} {hw}: {done} kernel launches, expected {SITES_768}")
         check(pred.shape == (hw + (3,) if task == "normals" else hw), f"{task} {hw}: shape {pred.shape}")
         check(bool(np.isfinite(pred).all()), f"{task} {hw}: non-finite output")
         if task == "depth":
@@ -232,13 +325,159 @@ def phase_serving(fa, fp32_pipe) -> int:
         else:
             norms = np.linalg.norm(pred, axis=-1)
             check(bool((norms <= 1.0 + 1e-3).all()), f"normals {hw}: norm above 1")
-    launches = fa.launches  # ... and ends here
+    launches = dict(fa.launches)  # ... and ends here
     peak = torch.cuda.max_memory_allocated() / 2**30
     for (task, hw), ms in latencies.items():
         print(f"[serve] bf16 {task} {hw[0]}x{hw[1]}: latency ms {[round(x, 2) for x in ms]} "
               f"(median {statistics.median(ms):.2f})", flush=True)
     print(f"[serve] peak device memory {peak:.3f} GiB; kernel launches {launches} "
           f"over {len(requests)} requests", flush=True)
+    # serving needs no gradient: the plain forward kernel only
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": SITES_768 * len(requests)},
+          f"serving launched {launches}")
+    return launches["flash_attention_fwd"]
+
+
+def synthetic_batch(rng, b: int, h: int, w: int, modality: str, invalid: float) -> dict:
+    """rgb in [-1, 1], a depth or unit-normal target, and a mask with `invalid` of the pixels off."""
+    batch = {"rgb": rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
+             "val_mask": rng.random((b, h, w)) >= invalid}
+    if modality == "depth":
+        batch["target"] = rng.uniform(-1, 1, (b, h, w)).astype(np.float32)
+    else:
+        n = rng.normal(size=(b, h, w, 3)).astype(np.float32)
+        batch["target"] = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    return batch
+
+
+def kernel_sites(unet) -> tuple:
+    """Record, during the next forward passes, the UNet self-attention modules
+    whose sequences fall in the kernels' envelope. Returns the list it fills
+    and the hooks' handles."""
+    from diffusion_e2e_ft_tpu_torch.kernels import in_kernel_envelope
+
+    sites, handles = [], []
+    for name, module in unet.named_modules():
+        if name.endswith(".attn1"):
+            def hook(mod, args, name=name):
+                lq = args[0].shape[1]
+                if in_kernel_envelope(lq, lq, mod.head_dim) and name not in sites:
+                    sites.append(name)
+            handles.append(module.register_forward_pre_hook(hook))
+    return sites, handles
+
+
+def phase_train_parity(fa, cpu_unet, cpu_vae, empty):
+    """One train step's loss and gradients, fp32: CPU (plain) vs GPU (kernels).
+    Returns the GPU copies of the models."""
+    from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
+
+    gpu_unet, gpu_vae = copy.deepcopy(cpu_unet).cuda(), copy.deepcopy(cpu_vae).cuda()
+    sites, handles = kernel_sites(gpu_unet)
+    rng = np.random.default_rng(2)
+    for modality in ("depth", "normals"):
+        config = TrainConfig(modality=modality, fused_vae_kernels=False, gradient_checkpointing=True,
+                             gradient_accumulation_steps=1)
+        batch = synthetic_batch(rng, 1, 256, 256, modality, invalid=0.2)
+        t0 = time.perf_counter()
+        loss_c, _, grads_c = E2ETrainer(config, cpu_unet, cpu_vae, empty).value_and_grad(batch)
+        t1 = time.perf_counter()
+        fa.reset_launches()
+        loss_g, _, grads_g = E2ETrainer(config, gpu_unet, gpu_vae, empty).value_and_grad(batch)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        norm_c = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_c.values()])))
+        norm_g = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_g.values()])))
+        loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        norm_rel = abs(norm_g - norm_c) / norm_c
+        leaf_rel = {n: float((grads_g[n].cpu() - grads_c[n]).abs().max() / grads_c[n].abs().max())
+                    for n in PARITY_LEAVES}
+        print(f"[train-parity] fp32 256x256 {modality}: loss cpu {float(loss_c):.6f} gpu {float(loss_g):.6f} "
+              f"(rel {loss_rel:.2e}), grad norm cpu {norm_c:.6e} gpu {norm_g:.6e} (rel {norm_rel:.2e}), "
+              f"leaf rel max|d| " + ", ".join(f"{n.replace('.weight', '').split('attn1.')[-1]} {e:.2e}"
+                                              for n, e in leaf_rel.items())
+              + f"; cpu step {t1 - t0:.1f} s; launches {launches}", flush=True)
+        check(loss_rel <= TRAIN_PARITY_BOUNDS["loss"], f"{modality}: loss rel {loss_rel}")
+        check(norm_rel <= TRAIN_PARITY_BOUNDS["grad_norm"], f"{modality}: grad norm rel {norm_rel}")
+        for n, e in leaf_rel.items():
+            check(e <= TRAIN_PARITY_BOUNDS["leaf"], f"{modality}: {n} rel max|d| {e}")
+        check(len(sites) == UNET_SITES_256, f"UNet kernel sites at 256x256: {sites}")
+        check(launches == step_launches(UNET_SITES_256), f"{modality}: launches {launches}")
+        for site in sites:  # the repair: every kernel site's projections get a gradient
+            for proj in ("to_q", "to_k", "to_v"):
+                g = grads_g[f"{site}.{proj}.weight"]
+                check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, f"zero gradient at {site}.{proj}")
+    print(f"[train-parity] every one of the {len(sites)} UNet kernel sites' to_q/to_k/to_v has a non-zero "
+          "gradient", flush=True)
+    for handle in handles:
+        handle.remove()
+    return gpu_unet, gpu_vae
+
+
+def phase_train(fa, unet, vae, empty) -> dict:
+    """The training main path: E2ETrainer + run_training at 480x640 bs 2, bf16
+    compute, fp32 masters; returns the kernel launches of that run."""
+    from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
+    from diffusion_e2e_ft_tpu_torch.training.loop import run_training
+
+    rng = np.random.default_rng(3)
+    batches = [synthetic_batch(rng, 2, 480, 640, "depth", invalid=0.0) for _ in range(TRAIN_STEPS)]
+    watched = PARITY_LEAVES[:2]
+    with tempfile.TemporaryDirectory() as out_dir:
+        config = TrainConfig(fused_vae_kernels=False, gradient_checkpointing=True, gradient_accumulation_steps=1,
+                             lr_warmup_steps=0, train_batch_size=2, max_train_steps=TRAIN_STEPS,
+                             checkpointing_steps=10 * TRAIN_STEPS, output_dir=out_dir)
+        trainer = E2ETrainer(config, unet, vae, empty, compute_dtype=torch.bfloat16)
+        step_ms, per_step = [], []
+        train_step = trainer.train_step
+
+        def timed_step(state, batch):  # synchronized host clock and launches, per step
+            before = dict(fa.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: fa.launches[k] - before[k] for k in before})
+            return out
+
+        trainer.train_step = timed_step
+        start = {n: dict(unet.named_parameters())[n].detach().clone() for n in watched}
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # the main path's run starts here
+        state = run_training(trainer, trainer.init_state(), lambda epoch: batches, log_every=1)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)  # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logs = [json.loads(line) for line in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
+    check(state.step == TRAIN_STEPS and len(logs) == TRAIN_STEPS, f"ran {state.step} steps, {len(logs)} logged")
+    for rec in logs:
+        check(np.isfinite(rec["train_loss"]) and np.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0,
+              f"step {rec['step']}: loss {rec['train_loss']}, grad norm {rec['grad_norm']}")
+    for n in watched:
+        check(not torch.equal(state.params[n], start[n]), f"{n} did not change")
+    check(all(s == step_launches(UNET_SITES_480x640) for s in per_step), f"launches per step {per_step}")
+    median = statistics.median(step_ms[1:])
+    losses = [round(r["train_loss"], 6) for r in logs]
+    norms = ", ".join(f"{r['grad_norm']:.3e}" for r in logs)
+    print(f"[train] bf16 480x640 bs 2, {TRAIN_STEPS} steps: ms/step {[round(x, 1) for x in step_ms]} "
+          f"(median after the first {median:.1f}, {2e3 / median:.2f} img/s), peak device memory {peak:.3f} GiB; "
+          f"loss {losses}, grad norm [{norms}]; launches per step {per_step[0]}", flush=True)
+    del state, trainer
+
+    # gradient accumulation 2: the weights move at the second micro-step only
+    trainer = E2ETrainer(config.replace(gradient_accumulation_steps=2), unet, vae, empty,
+                         compute_dtype=torch.bfloat16)
+    state = trainer.init_state()
+    start = {n: state.params[n].detach().clone() for n in watched}
+    state, _ = trainer.train_step(state, batches[0])
+    check(state.step == 0 and all(torch.equal(state.params[n], start[n]) for n in watched),
+          "accumulation 2: weights moved at the first micro-step")
+    state, m = trainer.train_step(state, batches[1])
+    check(state.step == 1 and not any(torch.equal(state.params[n], start[n]) for n in watched),
+          "accumulation 2: weights did not move at the second micro-step")
+    print(f"[train] accumulation 2: weights unchanged after micro-step 1, moved after micro-step 2 "
+          f"(grad norm {float(m['grad_norm']):.4f})", flush=True)
     return launches
 
 
@@ -264,20 +503,32 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
     _build.load_library()
 
-    numbers = phase_kernels(fa)
-    launches = phase_serving(fa, phase_e2e_parity(fa))  # no reference kept to the fp32 weights
-    check(launches > 0, "the main path launched no flash-attention kernel")
+    numbers = {"flash_attention_fwd": phase_kernels(fa), **phase_backward(fa)}
+    launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa))}  # no reference kept to its weights
+    torch.cuda.empty_cache()
 
+    from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    cpu = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=1, device="cpu")
+    empty = np.random.default_rng(1).normal(size=(1, 77, 1024)).astype(np.float32)  # a 77-token text context
+    unet, vae = phase_train_parity(fa, cpu.unet, cpu.vae, empty)
+    del cpu
+    trained = phase_train(fa, unet, vae, empty)
+    launches.update({k: v for k, v in trained.items() if k != "flash_attention_fwd"})
+    check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
+
+    sources = {"fwd": "flash_attention.cu", "bwd": "flash_attention_bwd.cu"}
+    replaces = {"flash_attention_fwd": 114, "flash_attention_fwd_lse": 294, "flash_attention_bwd_dq": 374,
+                "flash_attention_bwd_dkv": 407}
     kernels = [{
-        "name": "flash_attention_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "diffusion_e2e_ft_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "diffusion_e2e_ft_tpu/kernels/flash_attention.py:114",
-        "launches": launches,
-        "max_abs_err": numbers["max_abs_err"],
-        "ms": numbers["ms"],
-        "plain_ms": numbers["plain_ms"],
-    }]
+        "source": "diffusion_e2e_ft_tpu_torch/csrc/" + sources["bwd" if "bwd" in name else "fwd"],
+        "replaces": f"diffusion_e2e_ft_tpu/kernels/flash_attention.py:{line}",
+        "launches": launches[name],
+        **numbers[name],
+    } for name, line in replaces.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a): softmax(Q K^T * scale) V.
 //
 // Replaces diffusion_e2e_ft_tpu/kernels/flash_attention.py::_flash_kernel
-// (launched there by _flash_bnld). Same math: fp32 logits, fp32 online softmax
+// (launched there by _flash_bnld) and, with the kLse template flag,
+// ::_flash_kernel_lse (launched by _flash_bnld_lse), which also writes the
+// backward's residual: the fp32 per-row log-sum-exp m + log l of the scaled
+// logits, as an [B, Lq, N] array. Same math: fp32 logits, fp32 online softmax
 // (running max m, denominator l, accumulator O), P cast to the input dtype
 // before the P.V product, output in the input dtype. What differs from the TPU
 // kernel is the schedule: on Hopper nothing carries across blocks, so one block
@@ -30,31 +33,13 @@
 // raised with cudaFuncSetAttribute. Choice (b), splitting D across blocks,
 // would recompute the full-D logits once per split.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cmath>
-#include <cstdint>
-#include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kAlign = 128;  // byte alignment of each shared-memory array
-
-// bf16 tiles take the fast exponential; fp32 keeps the exact one.
-template <bool kFast>
-__device__ __forceinline__ float exp_(float x) {
-  if constexpr (kFast) {
-    return __expf(x);
-  } else {
-    return expf(x);
-  }
-}
-
-__host__ __device__ constexpr int align_up(int x, int a) { return (x + a - 1) / a * a; }
 
 // Tile configuration per (dtype, head dim).
 template <typename T, int D>
@@ -101,32 +86,10 @@ struct Smem {
   static constexpr int bytes = c_off + C::BQ * 4;
 };
 
-// Copy `rows` rows of D elements from global (row stride `ld` elements) into
-// shared memory (row stride LDT), zero-filling rows at or past `valid`.
-// Global rows are read as 16-byte vectors; the wrapper checks the alignment.
-template <typename T, int D, int LDT, int THREADS>
-__device__ void load_tile(T* dst, const T* src, int64_t ld, int rows, int valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * ld + c);
-    if constexpr (std::is_same<T, bf16>::value) {
-      *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;  // LDT keeps 16-byte alignment
-    } else {
-      const float* f = reinterpret_cast<const float*>(&val);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) dst[r * LDT + c + j] = f[j];
-    }
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(Cfg<T, D>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int N, int Lq, int Lk, float scale,
+                 T* __restrict__ o, float* __restrict__ lse, int N, int Lq, int Lk, float scale,
                  int64_t q_sb, int64_t q_sl, int64_t q_sn,
                  int64_t k_sb, int64_t k_sl, int64_t k_sn,
                  int64_t v_sb, int64_t v_sl, int64_t v_sn,
@@ -287,23 +250,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       ob[r * o_sl + c] = val;
     }
   }
+  if constexpr (kLse) {
+    for (int r = threadIdx.x; r < q_valid; r += THREADS) {
+      lse[(static_cast<int64_t>(b) * Lq + q0 + r) * N + n] = sM[r] + logf(sL[r]);
+    }
+  }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int Lq, int Lk,
-           float scale, const int64_t* s, cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+int launch_variant(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int N, int Lq, int Lk, float scale, const int64_t* s, cudaStream_t stream) {
   using C = Cfg<T, D>;
   constexpr int bytes = Smem<T, D>::bytes;
   static_assert(bytes <= 227 * 1024, "tile does not fit shared memory");
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Lq + C::BQ - 1) / C::BQ, B * N);
   kernel<<<grid, C::THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), N, Lq, Lk, scale, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
+      static_cast<T*>(o), lse, N, Lq, Lk, scale, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
       s[8], s[9], s[10], s[11]);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int N,
+           int Lq, int Lk, float scale, const int64_t* s, cudaStream_t stream) {
+  if (lse != nullptr) return launch_variant<T, D, true>(q, k, v, o, lse, B, N, Lq, Lk, scale, s, stream);
+  return launch_variant<T, D, false>(q, k, v, o, lse, B, N, Lq, Lk, scale, s, stream);
 }
 
 }  // namespace
@@ -311,16 +286,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides (elements): q (b, l, n), k, v, o.
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported
-// (dtype, head dim) pair. Launches on `stream` and does not synchronise.
-int e2eft_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                              int B, int N, int Lq, int Lk, int D, float scale,
+// lse: null for the plain forward, else a contiguous fp32 [B, Lq, N] array
+// that receives each row's log-sum-exp. Returns 0, a cudaError_t from the
+// launch, or -1 for an unsupported (dtype, head dim) pair. Launches on
+// `stream` and does not synchronise.
+int e2eft_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int dtype, int B, int N, int Lq, int Lk, int D, float scale,
                               const int64_t* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64) return launch<bf16, 64>(q, k, v, o, B, N, Lq, Lk, scale, strides, st);
-  if (dtype == 1 && D == 512) return launch<bf16, 512>(q, k, v, o, B, N, Lq, Lk, scale, strides, st);
-  if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, B, N, Lq, Lk, scale, strides, st);
-  if (dtype == 0 && D == 512) return launch<float, 512>(q, k, v, o, B, N, Lq, Lk, scale, strides, st);
+  if (dtype == 1 && D == 64) return launch<bf16, 64>(q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+  if (dtype == 1 && D == 512) return launch<bf16, 512>(q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+  if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+  if (dtype == 0 && D == 512) return launch<float, 512>(q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
   return -1;
 }
 

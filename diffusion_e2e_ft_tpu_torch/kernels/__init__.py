@@ -1,4 +1,5 @@
-"""Attention dispatch, the Hopper flash-attention kernel, and GroupNorm."""
+"""Attention dispatch, the Hopper flash-attention kernels (forward, forward+LSE,
+dq, dk/dv) with their autograd Function, and GroupNorm."""
 
 from diffusion_e2e_ft_tpu_torch.kernels.attention import attention, in_kernel_envelope
 

@@ -1,10 +1,11 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled into one shared library with a plain C
-interface, for `sm_90a` (Hopper). The library goes into `_build/<hash>/`
-beside the package (listed in `.gitignore`), keyed by a hash of the sources
-and the flags, so an edited source rebuilds and an unchanged one loads at
-once. The build runs at first use, never at import time.
+Every `csrc/*.cu` file is compiled for `sm_90a` (Hopper), one `nvcc` per
+source, all started together, and the objects are linked into one shared
+library with a plain C interface. The library goes into `_build/<hash>/`
+beside the package (listed in `.gitignore`), keyed by a hash of the sources,
+the headers and the flags, so an edited source rebuilds and an unchanged one
+loads at once. The build runs at first use, never at import time.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ LIB_NAME = "libe2eft_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -35,6 +36,10 @@ class KernelBuildError(RuntimeError):
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -47,7 +52,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -64,31 +69,44 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources(), objs)]
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)])
+    try:
+        # every compile at once, each waited for before any failure is raised
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            results.append((cmds[-1], link.stdout, link.returncode))
+        for cmd, log, rc in results:
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
-    return lib, seconds, log
+    return lib, time.perf_counter() - t0, "".join(log for _, log, _ in results)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C functions' signatures."""
     lib = ctypes.CDLL(str(build()[0]))
-    fn = lib.e2eft_flash_attention_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, o
-        ctypes.c_int,  # dtype
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B N Lq Lk D
-        ctypes.c_float,  # scale
-        ctypes.POINTER(ctypes.c_int64),  # 12 strides
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    sizes = [i32] * 6 + [ctypes.c_float, ctypes.POINTER(ctypes.c_int64), ptr]  # dtype B N Lq Lk D, scale, strides, stream
+    signatures = {
+        "e2eft_flash_attention_fwd": [ptr] * 5,  # q, k, v, o, lse (null: no lse)
+        "e2eft_flash_attention_bwd_dq": [ptr] * 7,  # q, k, v, dO, lse, delta, dq
+        "e2eft_flash_attention_bwd_dkv": [ptr] * 8,  # q, k, v, dO, lse, delta, dk, dv
+    }
+    for name, pointers in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = pointers + sizes
+        fn.restype = ctypes.c_int
     return lib

@@ -151,6 +151,16 @@ def clip_text_state_dict_to_flax_params(state_dict: Mapping[str, Any]) -> Dict[s
     return tree
 
 
+def replace_conv_in(state_dict: Mapping[str, torch.Tensor], repeat: int = 2) -> Dict[str, torch.Tensor]:
+    """Duplicate the UNet's conv_in input channels 4 -> 4 * repeat, dividing
+    weight and bias by `repeat` (the reference's input surgery, as the JAX
+    package's `replace_conv_in`). OIHW: channels are axis 1."""
+    out = dict(state_dict)
+    out["conv_in.weight"] = state_dict["conv_in.weight"].repeat(1, repeat, 1, 1) / repeat
+    out["conv_in.bias"] = state_dict["conv_in.bias"] / repeat
+    return out
+
+
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     """Read a `.safetensors` file: 8-byte little-endian header length, a JSON
     header of {name: {dtype, shape, data_offsets}}, then the raw tensor bytes."""

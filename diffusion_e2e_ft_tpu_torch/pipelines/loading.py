@@ -1,18 +1,22 @@
-"""HF (diffusers-layout) pipeline directory loading, port of the Marigold part of
+"""HF (diffusers-layout) pipeline directories, port of the Marigold part of
 `diffusion_e2e_ft_tpu/pipelines/loading.py`.
 
-Reads `unet/`, `vae/`, `scheduler/` and `text_encoder/` subfolders; weights
-load with `load_state_dict(strict=True)`, so a missing or extra key fails.
-The empty-prompt text embedding is computed once at load time and the text
-tower is dropped afterwards.
+Loading reads `unet/`, `vae/`, `scheduler/` and `text_encoder/` subfolders;
+weights load with `load_state_dict(strict=True)`, so a missing or extra key
+fails. The empty-prompt text embedding is computed once at load time and the
+text tower is dropped afterwards.
+
+`save_pipeline_dir` writes the same layout (torch `.bin` weights, which both
+packages read), so an export from either package loads in both.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import warnings
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -97,6 +101,65 @@ def scheduler_config_from_hf(cfg: Dict[str, Any]) -> sched_ops.SchedulerConfig:
     )
 
 
+def unet_config_to_hf(c: UNetConfig) -> Dict[str, Any]:
+    return {
+        "_class_name": "UNet2DConditionModel",
+        "in_channels": c.in_channels,
+        "out_channels": c.out_channels,
+        "block_out_channels": list(c.block_out_channels),
+        "layers_per_block": c.layers_per_block,
+        "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D" for a in c.cross_attention_levels],
+        "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D" for a in reversed(c.cross_attention_levels)],
+        "attention_head_dim": list(c.num_attention_heads),
+        "cross_attention_dim": c.cross_attention_dim,
+        "transformer_layers_per_block": c.transformer_depth,
+        "norm_num_groups": c.norm_num_groups,
+        "norm_eps": c.norm_eps,
+        "use_linear_projection": True,
+        "flip_sin_to_cos": c.flip_sin_to_cos,
+        "freq_shift": c.freq_shift,
+        "act_fn": "silu",
+        "center_input_sample": False,
+        "downsample_padding": 1,
+        "mid_block_scale_factor": 1,
+    }
+
+
+def vae_config_to_hf(c: VAEConfig) -> Dict[str, Any]:
+    n = len(c.block_out_channels)
+    return {
+        "_class_name": "AutoencoderKL",
+        "in_channels": c.in_channels,
+        "out_channels": c.out_channels,
+        "latent_channels": c.latent_channels,
+        "block_out_channels": list(c.block_out_channels),
+        "layers_per_block": c.layers_per_block,
+        "norm_num_groups": c.norm_num_groups,
+        "scaling_factor": c.scaling_factor,
+        "down_block_types": ["DownEncoderBlock2D"] * n,
+        "up_block_types": ["UpDecoderBlock2D"] * n,
+        "act_fn": "silu",
+    }
+
+
+def scheduler_config_to_hf(c: sched_ops.SchedulerConfig, class_name: str = "DDIMScheduler") -> Dict[str, Any]:
+    return {
+        "_class_name": class_name,
+        "num_train_timesteps": c.num_train_timesteps,
+        "beta_start": c.beta_start,
+        "beta_end": c.beta_end,
+        "beta_schedule": c.beta_schedule,
+        "prediction_type": c.prediction_type,
+        "timestep_spacing": c.timestep_spacing,
+        "steps_offset": c.steps_offset,
+        "clip_sample": c.clip_sample,
+        "clip_sample_range": c.clip_sample_range,
+        "set_alpha_to_one": c.set_alpha_to_one,
+        "rescale_betas_zero_snr": c.rescale_betas_zero_snr,
+        "trained_betas": None,
+    }
+
+
 def text_config_from_hf(cfg: Dict[str, Any]) -> clip_models.CLIPTextConfig:
     return clip_models.CLIPTextConfig(
         vocab_size=cfg.get("vocab_size", 49408),
@@ -131,12 +194,13 @@ def load_vae(path: str) -> AutoencoderKL:
 
 
 @torch.inference_mode()
-def compute_empty_text_embed(text_encoder_dir: str, device="cpu") -> np.ndarray:
-    """Run the checkpoint's text tower on the empty prompt once; return [1, L, D] fp32."""
+def compute_empty_text_embed(text_encoder_dir: str, device="cpu", pad_to: Optional[int] = None) -> np.ndarray:
+    """Run the checkpoint's text tower on the empty prompt once (EOS-padded to
+    `pad_to` tokens if given); return [1, L, D] fp32."""
     cfg = text_config_from_hf(_read_json(os.path.join(text_encoder_dir, "config.json")))
     model = _load_module(clip_models.CLIPTextModel, cfg, _find_weights(text_encoder_dir))
     model = model.to(device=device, dtype=torch.float32).eval()
-    ids = torch.as_tensor(clip_models.empty_prompt_ids(), device=device)
+    ids = torch.as_tensor(clip_models.empty_prompt_ids(pad_to), device=device)
     return model(ids).cpu().numpy()
 
 
@@ -174,3 +238,70 @@ def load_marigold_pipeline(
         unet, vae, scheduler_config_from_hf(sched_json), empty,
         device=device, dtype=dtype, scheduler_type=scheduler_type,
     )
+
+
+_MODEL_INDEX_CLASSES = {
+    "text_encoder": ["transformers", "CLIPTextModel"],
+    "tokenizer": ["transformers", "CLIPTokenizer"],
+    "feature_extractor": ["transformers", "CLIPImageProcessor"],
+}
+
+
+def _save_weights(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous() for k, v in state_dict.items()}, path)
+
+
+def save_pipeline_dir(
+    path: str,
+    unet_config: UNetConfig,
+    unet_state: Mapping[str, torch.Tensor],
+    vae_config: VAEConfig,
+    vae_state: Mapping[str, torch.Tensor],
+    scheduler_config: sched_ops.SchedulerConfig,
+    scheduler_class: str = "DDIMScheduler",
+    copy_subfolders: Optional[Dict[str, str]] = None,
+) -> None:
+    """Write an HF-layout Marigold pipeline directory: model_index.json, unet/
+    and vae/ (config.json + fp32 `diffusion_pytorch_model.bin`), scheduler/,
+    and each of `copy_subfolders` (name -> source directory) copied verbatim."""
+    os.makedirs(path, exist_ok=True)
+    index = {
+        "_class_name": "MarigoldPipeline",
+        "unet": ["diffusers", "UNet2DConditionModel"],
+        "vae": ["diffusers", "AutoencoderKL"],
+        "scheduler": ["diffusers", scheduler_class],
+    }
+    index.update({sub: _MODEL_INDEX_CLASSES[sub] for sub in copy_subfolders or () if sub in _MODEL_INDEX_CLASSES})
+    with open(os.path.join(path, "model_index.json"), "w") as f:
+        json.dump(index, f, indent=2)
+    for sub, cfg, state in (
+        ("unet", unet_config_to_hf(unet_config), unet_state),
+        ("vae", vae_config_to_hf(vae_config), vae_state),
+    ):
+        os.makedirs(os.path.join(path, sub), exist_ok=True)
+        with open(os.path.join(path, sub, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2)
+        _save_weights(state, os.path.join(path, sub, "diffusion_pytorch_model.bin"))
+    os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
+    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(scheduler_config_to_hf(scheduler_config, scheduler_class), f, indent=2)
+    for sub, src in (copy_subfolders or {}).items():
+        dst = os.path.join(path, sub)
+        if os.path.abspath(src) != os.path.abspath(dst):
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(src, dst)
+
+
+def frozen_tower_subfolders(source_checkpoint: str) -> Dict[str, str]:
+    """The frozen towers a depth/normals export carries from its base checkpoint:
+    text_encoder (required), tokenizer and feature_extractor when present."""
+    src = os.path.join(source_checkpoint, "text_encoder")
+    if not os.path.isdir(src):
+        raise FileNotFoundError(
+            f"base checkpoint {source_checkpoint} has no text_encoder/ subfolder; the final export must include it"
+        )
+    out = {"text_encoder": src}
+    for sub in ("tokenizer", "feature_extractor"):
+        if os.path.isdir(os.path.join(source_checkpoint, sub)):
+            out[sub] = os.path.join(source_checkpoint, sub)
+    return out

@@ -4,8 +4,10 @@
 The device body is VAE encode -> a Python loop over the DDIM plan (UNet, step)
 -> VAE decode -> task postprocessing. With one step and zeros noise, the
 production configuration, that is one feed-forward pass. PyTorch runs it
-eagerly; there is nothing to compile. Ensembles, gaussian / pyramid noise
-and the DDPM / LCM schedulers are not ported yet.
+eagerly; there is nothing to compile. A DDPM-class checkpoint (what the
+trainers export) runs single-step through the same x0 path, as in the JAX
+package. Ensembles, gaussian / pyramid noise, multi-step DDPM and the LCM
+scheduler are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,10 +73,11 @@ class MarigoldPipeline:
         dtype: torch.dtype = torch.float32,
         scheduler_type: str = "ddim",
     ):
-        if scheduler_type != "ddim":
+        if scheduler_type not in ("ddim", "ddpm"):
             raise NotImplementedError(
                 f"{scheduler_type} scheduler is not ported yet (slice C: multi-step, noise, ensembles)"
             )
+        self.scheduler_type = scheduler_type
         self.device = torch.device(device)
         self.dtype = dtype
         self.unet = unet.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
@@ -124,6 +127,8 @@ class MarigoldPipeline:
         """rgb [B,H,W,3] in [-1,1] -> depth [B,H,W] in [0,1] or unit normals
         [B,H,W,3] (fp32)."""
         cfg = self.scheduler_config
+        if self.scheduler_type == "ddpm" and num_steps > 1:
+            raise NotImplementedError("multi-step DDPM is not ported yet (slice C: multi-step, noise, ensembles)")
         plan = sched_ops.make_plan(cfg, num_steps)
         b, h, w, _ = rgb.shape
         latent = noise_ops.make_noise(noise, (b, self.vae.config.latent_channels, h // 8, w // 8), self.dtype, self.device)

@@ -1,0 +1,119 @@
+"""Training checkpoints and the final export, port of
+`diffusion_e2e_ft_tpu/training/checkpoints.py`.
+
+Step checkpoints are `checkpoint-<step>/train_state.pt` directories holding a
+torch-saved TrainState (counters, UNet parameters, optimizer state, EMA),
+rotated to `checkpoints_total_limit` and restored in place. The final export
+is an HF pipeline directory with trailing timestep spacing baked into the
+scheduler config, as the JAX package's `export_hf_pipeline` writes it; an
+export from either package loads in both.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import shutil
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import torch
+
+from diffusion_e2e_ft_tpu_torch.training.trainer import TrainState
+
+_STEP_RE = re.compile(r"checkpoint-(\d+)$")
+STATE_FILE = "train_state.pt"
+
+
+def _ckpt_path(output_dir: str, step: int) -> str:
+    return os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
+
+
+def list_checkpoints(output_dir: str) -> List[Tuple[int, str]]:
+    """[(step, path)] sorted ascending."""
+    if not os.path.isdir(output_dir):
+        return []
+    out = []
+    for name in os.listdir(output_dir):
+        m = _STEP_RE.match(name)
+        if m:
+            out.append((int(m.group(1)), os.path.join(os.path.abspath(output_dir), name)))
+    return sorted(out)
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    ckpts = list_checkpoints(output_dir)
+    return ckpts[-1][1] if ckpts else None
+
+
+def save_checkpoint(output_dir: str, step: int, state: TrainState, total_limit: Optional[int] = None) -> str:
+    """Save the full TrainState; rotate old checkpoints beyond total_limit."""
+    path = _ckpt_path(output_dir, step)
+    tmp = f"{path}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    # not dataclasses.asdict, which would deep-copy every tensor
+    torch.save({f.name: getattr(state, f.name) for f in dataclasses.fields(state)}, os.path.join(tmp, STATE_FILE))
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)  # a reader never sees a half-written checkpoint
+    if total_limit is not None:
+        ckpts = list_checkpoints(output_dir)
+        for _, old in ckpts[: max(len(ckpts) - total_limit, 0)]:
+            shutil.rmtree(old, ignore_errors=True)
+    return path
+
+
+def _copy_into(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor], what: str) -> None:
+    if set(dst) != set(src):
+        raise ValueError(f"checkpoint {what} do not match the state's: {sorted(set(dst) ^ set(src))[:5]}")
+    with torch.no_grad():
+        for name, t in dst.items():
+            t.copy_(src[name])
+
+
+def restore_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Load a checkpoint written by `save_checkpoint` into `state`'s tensors (in
+    place, so the UNet module holding them takes the saved weights)."""
+    saved = torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu", weights_only=True)
+    _copy_into(state.params, saved["params"], "params")
+    opt: Dict = dict(saved["opt_state"])
+    for key, value in state.opt_state.items():
+        if isinstance(value, dict):
+            _copy_into(value, opt[key], f"optimizer {key}")
+            opt[key] = value
+    if (state.ema_params is None) != (saved["ema_params"] is None):
+        raise ValueError("checkpoint and state disagree on use_ema")
+    if state.ema_params is not None:
+        _copy_into(state.ema_params, saved["ema_params"], "ema params")
+    return dataclasses.replace(state, step=saved["step"], micro_step=saved["micro_step"], opt_state=opt)
+
+
+def step_from_path(path: str) -> int:
+    m = _STEP_RE.search(os.path.basename(os.path.normpath(path)))
+    if not m:
+        raise ValueError(f"not a checkpoint path: {path}")
+    return int(m.group(1))
+
+
+def export_hf_pipeline(
+    output_dir: str,
+    unet_config,
+    unet_state: Mapping[str, torch.Tensor],
+    vae_config,
+    vae_state: Mapping[str, torch.Tensor],
+    scheduler_config,
+    scheduler_class: str = "DDPMScheduler",
+    source_checkpoint: Optional[str] = None,
+) -> None:
+    """Final export in the HF pipeline layout with TRAILING spacing baked in.
+    With `source_checkpoint`, the frozen text tower (+ tokenizer) is copied in,
+    so the export is self-contained: the trained UNet expects the real
+    empty-prompt embedding."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import loading
+
+    loading.save_pipeline_dir(
+        output_dir, unet_config, unet_state, vae_config, vae_state,
+        dataclasses.replace(scheduler_config, timestep_spacing="trailing"),
+        scheduler_class=scheduler_class,
+        copy_subfolders=None if source_checkpoint is None else loading.frozen_tower_subfolders(source_checkpoint),
+    )

@@ -1,0 +1,209 @@
+"""The end-to-end fine-tuning step, port of
+`diffusion_e2e_ft_tpu/training/trainer.py::E2ETrainer`.
+
+One micro-step: the frozen VAE encodes the image (no grad, x 0.18215), the UNet
+runs at t = 999 on the latent concatenated with a zeros latent (or alone, for
+raw SD with `noise_type=None`), the scheduler recovers x0 from the
+prediction, the frozen VAE decodes x0 inside the differentiated graph, and the
+task loss is taken on the decoded image: depth as the channel mean clipped to
+[-1, 1] under the SSI loss, normals unit-normalized (+1e-5) and clipped under
+the angular loss. A NaN loss becomes 0, and so does the loss of a batch with
+no valid pixel. The optimizer has optax's semantics (`training/optim.py`),
+with gradient accumulation and EMA on synced steps.
+
+PyTorch runs eagerly, so there is nothing to jit: `train_step` updates the
+UNet's parameters in place. `gradient_checkpointing` is a non-reentrant
+`torch.utils.checkpoint` of the whole UNet (the JAX default, save nothing);
+`vae_decode_checkpoint` does the same for the decode.
+
+Mixed precision: the UNet keeps fp32 master weights; with
+`compute_dtype=torch.bfloat16` the step runs under `torch.autocast`, so the
+products (and the attention kernels) see bf16, as the JAX step computes in
+bf16 with fp32 params; the frozen VAE keeps its fp32 weights too. The losses
+run in fp32.
+
+Not ported here, each raising `NotImplementedError` naming its slice: gaussian
+and pyramid noise with the pyramid schedule bank (slice C), the joint
+GeoWizard modality (slice B), `adam_mu_dtype` and the JAX remat policies
+(slice D3), and `fused_vae_kernels=True` on the GPU (slice D2; on the CPU the
+JAX package runs the plain composite there too, which is what the port's VAE
+always runs). Data-parallel `shard` / `place_frozen` belong to slice F.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition
+from diffusion_e2e_ft_tpu_torch.ops import losses as L
+from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
+from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
+from diffusion_e2e_ft_tpu_torch.training.lr import iter_exponential_schedule
+from diffusion_e2e_ft_tpu_torch.training.optim import OptaxAdamW, ema_update_, global_norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Host-side counters, the UNet's trainable parameters (the module's own
+    tensors, by name), the optimizer state and the EMA copy."""
+
+    step: int  # optimizer (synced) steps
+    micro_step: int  # micro-batches: step * accumulation + k
+    params: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+
+def check_ported(config: TrainConfig, device: torch.device) -> None:
+    """Raise for the options this port does not run yet, naming their slice."""
+    if config.modality == "joint":
+        raise NotImplementedError("modality='joint' (GeoWizard) is not ported yet (slice B)")
+    if config.modality not in ("depth", "normals"):
+        raise ValueError(f"Unknown modality: {config.modality}")
+    if config.noise_type not in (None, "zeros"):
+        raise NotImplementedError(
+            f"noise_type={config.noise_type!r} (and the pyramid schedule bank) is not ported yet (slice C)"
+        )
+    if config.adam_mu_dtype is not None:
+        raise NotImplementedError("adam_mu_dtype is not ported yet (slice D3)")
+    if config.remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={config.remat_policy!r} is a JAX checkpoint policy, not ported (slice D3); "
+            "the port checkpoints the whole UNet (remat_policy=None)"
+        )
+    if config.fused_vae_kernels and device.type == "cuda":
+        raise NotImplementedError(
+            "fused_vae_kernels=True needs the fused GroupNorm+SiLU->conv kernels, not ported yet "
+            "(slice D2); pass fused_vae_kernels=False"
+        )
+
+
+class E2ETrainer:
+    """Runs the E2E fine-tuning step for one UNet against a frozen VAE."""
+
+    def __init__(
+        self,
+        config: TrainConfig,
+        unet: UNet2DCondition,
+        vae: AutoencoderKL,
+        empty_text_embed: np.ndarray,  # [1, L, D] CLIP embedding of ""
+        scheduler_config: Optional[sched_ops.SchedulerConfig] = None,
+        latent_scale: float = 0.18215,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        self.device = next(unet.parameters()).device
+        check_ported(config, self.device)
+        self.config = config
+        self.compute_dtype = compute_dtype
+        self.unet = unet.float().requires_grad_(True)
+        self.vae = vae.to(self.device).eval().requires_grad_(False)
+        self.empty_text_embed = torch.as_tensor(np.asarray(empty_text_embed), dtype=torch.float32).to(self.device)
+        self.scheduler_config = scheduler_config or sched_ops.SchedulerConfig(
+            prediction_type=config.prediction_type
+        )
+        self.schedule = sched_ops.make_schedule(self.scheduler_config, device=self.device)
+        self.latent_scale = latent_scale
+        c = config
+        # the reference scales schedule lengths by the data-parallel degree
+        self.lr_schedule = iter_exponential_schedule(
+            c.learning_rate,
+            c.lr_total_iter_length * c.num_data_parallel,
+            c.lr_final_ratio,
+            c.lr_warmup_steps * c.num_data_parallel,
+        )
+        self.optimizer = OptaxAdamW(
+            self.lr_schedule, b1=c.adam_beta1, b2=c.adam_beta2, eps=c.adam_epsilon,
+            weight_decay=c.adam_weight_decay, max_grad_norm=c.max_grad_norm,
+            class_embedding_lr_mult=c.class_embedding_lr_mult,
+            accumulate=c.gradient_accumulation_steps,
+        )
+
+    def init_state(self) -> TrainState:
+        params = dict(self.unet.named_parameters())
+        ema = {n: p.detach().clone() for n, p in params.items()} if self.config.use_ema else None
+        return TrainState(0, 0, params, self.optimizer.init(params), ema)
+
+    # ------------------------------------------------------------------
+    # Forward + loss
+    # ------------------------------------------------------------------
+
+    def _autocast(self):
+        if self.compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.compute_dtype)
+
+    def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
+        return (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(self.device, dtype)
+
+    def loss(self, batch: Mapping[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The task loss of one batch: rgb [B,H,W,3] in [-1,1], val_mask [B,H,W]
+        bool, target [B,H,W] (depth) or [B,H,W,3] (normals); numpy or torch."""
+        c = self.config
+        rgb = self._tensor(batch["rgb"], torch.float32).permute(0, 3, 1, 2)
+        mask = self._tensor(batch["val_mask"], torch.bool)
+        target = self._tensor(batch["target"], torch.float32)
+        b = rgb.shape[0]
+        with self._autocast():
+            with torch.no_grad():  # frozen VAE encode: no gradient into the encoder
+                rgb_latents = (self.vae.encode_mean(rgb) * self.latent_scale).float()
+            t = torch.full((b,), self.scheduler_config.num_train_timesteps - 1, dtype=torch.long, device=self.device)
+            noisy = torch.zeros_like(rgb_latents)
+            context = self.empty_text_embed.expand(b, -1, -1)
+            unet_in = torch.cat([rgb_latents, noisy], dim=1) if c.noise_type is not None else rgb_latents
+            if c.gradient_checkpointing:
+                model_pred = checkpoint(self.unet, unet_in, t, context, use_reentrant=False)
+            else:
+                model_pred = self.unet(unet_in, t, context)
+            x0 = sched_ops.pred_original_sample(self.scheduler_config, self.schedule, model_pred.float(), t, noisy)
+            z = x0 / self.latent_scale
+            if c.vae_decode_checkpoint:
+                decoded = checkpoint(self.vae.decode, z, use_reentrant=False)
+            else:
+                decoded = self.vae.decode(z)
+        decoded = decoded.float().permute(0, 2, 3, 1)  # [B, H, W, 3]
+
+        if c.modality == "depth":
+            est = decoded.mean(dim=-1).clamp(-1.0, 1.0)
+            loss = L.nan_guarded(L.ssi_loss(est, target, mask))
+        else:
+            norm = torch.linalg.vector_norm(decoded, dim=-1, keepdim=True) + 1e-5
+            est = (decoded / norm).clamp(-1.0, 1.0)
+            loss = L.nan_guarded(L.angular_loss(est, target, mask))
+        # an all-invalid batch contributes zero loss (the reference skips it)
+        loss = torch.where(mask.any(), loss, torch.zeros_like(loss))
+        return loss, {"loss": loss.detach()}
+
+    def value_and_grad(
+        self, batch: Mapping[str, Any]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """(loss, metrics, gradient of the loss by UNet parameter name)."""
+        names, params = zip(*self.unet.named_parameters())
+        loss, metrics = self.loss(batch)
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        return loss.detach(), metrics, dict(zip(names, grads))
+
+    # ------------------------------------------------------------------
+    # Train step
+    # ------------------------------------------------------------------
+
+    def train_step(self, state: TrainState, batch: Mapping[str, Any]) -> Tuple[TrainState, Dict[str, Any]]:
+        """One micro-batch. With gradient accumulation the parameters move only
+        at every K-th call (optax.MultiSteps semantics). Metrics stay on the
+        device: `loss` and `grad_norm` (the raw micro-batch gradient's global
+        norm, before clipping) are tensors; `lr_step` is an int."""
+        _, metrics, grads = self.value_and_grad(batch)
+        metrics["grad_norm"] = global_norm(list(grads.values()))
+        self.optimizer.update(grads, state.opt_state, state.params)
+        micro = state.micro_step + 1
+        synced = micro % self.config.gradient_accumulation_steps == 0
+        step = state.step + int(synced)
+        if synced and state.ema_params is not None:
+            ema_update_(state.ema_params, state.params, self.config.ema_decay)
+        metrics["lr_step"] = step
+        return dataclasses.replace(state, step=step, micro_step=micro), metrics

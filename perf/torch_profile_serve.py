@@ -40,11 +40,13 @@ REQUESTS = 3  # warm requests under the profiler
 
 # kernel-name substrings -> kind, first match wins
 KINDS = (
-    ("flash attention (ours)", ("flash_fwd_kernel",)),
+    ("flash attention fwd (ours)", ("flash_fwd_kernel",)),
+    ("flash attention bwd (ours)", ("flash_bwd_",)),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolutions", ("fprop", "conv", "cudnn", "dgrad")),
+    ("convolutions", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "cublas", "nvjet")),
     ("memcpy / memset", ("Memcpy", "Memset")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("elementwise and reductions", ("elementwise", "reduce", "copy", "upsample")),
 )
 

@@ -1,0 +1,109 @@
+"""Where the time goes in a bf16 E2E train step of the PyTorch port, on one GPU.
+
+    python3 perf/torch_profile_train.py [--out output/torch_profile_train.txt]
+
+A full-width SD2 UNet and VAE (`UNetConfig.sd2()`, `VAEConfig()`) with seeded
+random weights train at 480x640, batch 2, as `chip_smoke.py`'s training phase
+does: fp32 master weights, bf16 compute under autocast, UNet checkpointing,
+`fused_vae_kernels=False`, K=1, synthetic batches. After two warm-up steps it
+prints:
+
+- the step's split, forward (encode + UNet + decode + loss) / backward /
+  optimizer, from CUDA events around each, median of 5;
+- over 3 steps under torch.profiler: host wall time, summed kernel time, the
+  idle share 1 - kernel time / wall, and kernel time grouped by kind.
+
+The profiler's per-op tables go to `--out`. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
+from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
+from torch_profile_serve import kind_of  # noqa: E402  (this directory)
+
+STEPS = 3  # steps under the profiler
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="output/torch_profile_train.txt", help="per-op tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_train: needs a CUDA device")
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    models = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=1, device="cuda")
+    empty = np.random.default_rng(1).normal(size=(1, 77, 1024)).astype(np.float32)
+    config = TrainConfig(fused_vae_kernels=False, gradient_checkpointing=True, gradient_accumulation_steps=1,
+                         lr_warmup_steps=0)
+    trainer = E2ETrainer(config, models.unet, models.vae, empty, compute_dtype=torch.bfloat16)
+    state = trainer.init_state()
+    rng = np.random.default_rng(3)
+    batch = {"rgb": rng.uniform(-1, 1, (2, 480, 640, 3)).astype(np.float32),
+             "target": rng.uniform(-1, 1, (2, 480, 640)).astype(np.float32),
+             "val_mask": np.ones((2, 480, 640), bool)}
+    for _ in range(2):
+        state, _ = trainer.train_step(state, batch)
+
+    names, params = zip(*trainer.unet.named_parameters())
+    split = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = trainer.loss(batch)
+        ev[1].record()
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        ev[2].record()
+        trainer.optimizer.update(grads, state.opt_state, state.params)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del loss, grads
+    fwd, bwd, opt = (statistics.median(col) for col in zip(*split))
+    print(f"[train 480x640 bs 2] step split, CUDA events, median of 5: forward {fwd:.2f} ms, "
+          f"backward {bwd:.2f} ms, optimizer {opt:.2f} ms", flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    print(f"[train 480x640 bs 2] profiler, {STEPS} steps: wall {wall:.1f} ms, kernel time {busy:.1f} ms, "
+          f"idle share {1.0 - busy / wall:.3f}", flush=True)
+    by_kind: dict = {}
+    for e in kernels:
+        by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + e.device_time / 1e3
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"[train 480x640 bs 2]   {kind:28s} {ms / STEPS:8.2f} ms per step", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as tables:
+        tables.write(f"== train step 480x640 bs 2, {STEPS} steps\n")
+        tables.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=50,
+                                               max_name_column_width=90))
+    print(f"per-op tables: {args.out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -52,7 +52,7 @@ def test_reference_matches_pallas_kernel(interpret_mode, bn, lq, lk, d):
 
 def test_cpu_dispatch_takes_plain_version():
     q, k, v = (torch.from_numpy(x).view(1, 300, 1, 64) for x in _qkv(1, 300, 300, 64, seed=1))
-    before = tfa.launches
+    before = dict(tfa.launches)
     out = kernels.attention(q, k, v)
     torch.testing.assert_close(out, tfa.flash_attention_reference(q, k, v), rtol=0, atol=0)
     assert tfa.launches == before

@@ -27,6 +27,15 @@ def test_port_modules_listed():
         "diffusion_e2e_ft_tpu_torch.kernels.flash_attention",
         "diffusion_e2e_ft_tpu_torch.pipelines.loading",
         "diffusion_e2e_ft_tpu_torch.cli.serve",
+        "diffusion_e2e_ft_tpu_torch.cli.train",
+        "diffusion_e2e_ft_tpu_torch.ops.losses",
+        "diffusion_e2e_ft_tpu_torch.training.checkpoints",
+        "diffusion_e2e_ft_tpu_torch.training.config",
+        "diffusion_e2e_ft_tpu_torch.training.loop",
+        "diffusion_e2e_ft_tpu_torch.training.lr",
+        "diffusion_e2e_ft_tpu_torch.training.optim",
+        "diffusion_e2e_ft_tpu_torch.training.trainer",
+        "diffusion_e2e_ft_tpu_torch.utils.logging",
     ):
         assert expected in mods
 
@@ -41,6 +50,26 @@ def test_imports_with_jax_blocked():
         "    importlib.import_module(mod)\n"
         "assert not any(m == 'diffusion_e2e_ft_tpu' or m.startswith('diffusion_e2e_ft_tpu.')\n"
         "               for m in sys.modules), 'the port imported the JAX package'\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_train_cli_data_readers_import_without_jax():
+    """`cli.train` reuses the JAX package's host-side data readers and mixer;
+    they (and the CLI's parser) load with JAX blocked too."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+        "    sys.modules[name] = None\n"
+        "from diffusion_e2e_ft_tpu.data.mixer import BatchLoader, MixedLoader, Prefetcher\n"
+        "from diffusion_e2e_ft_tpu.data.train_datasets import Hypersim, VirtualKITTI2\n"
+        "from diffusion_e2e_ft_tpu_torch.cli.train import build_parser\n"
+        "build_parser().parse_args(['--pretrained_model_name_or_path', 'x'])\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
