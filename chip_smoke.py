@@ -16,24 +16,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the 480x640 training shapes and ragged ones, fp32 and bf16, bounded by
    max |delta| / max(1, max |plain|); each kernel's time beside its plain
    version's;
+4b. the GroupNorm kernels: the statistics kernel and the fused
+   GroupNorm+SiLU -> conv3x3 kernels, v1 (statistics, fold, conv) and v2 (one
+   cooperative launch), against their plain versions at every GN -> conv
+   shape of the 480x640 bs-2 frozen VAE and ragged ones, fp32 and bf16, with
+   a non-zero GroupNorm bias, bounded as the backward kernels, and their
+   times beside the plain versions';
 5. end-to-end parity, fp32 with TF32 off: a full-width SD2 Marigold pipeline
    with seeded random weights runs one 256x256 image, depth and normals, on
    the CPU (plain path) and on the GPU (kernel path, 12 kernel launches each);
 6. serving, slice A's main path: the same weights written as an HF pipeline
    directory (bf16 `.bin` files), loaded with `MarigoldPipeline.from_hf_dir`
    on the GPU in bf16, and a `PipelineService` answering 768x768 depth,
-   768x768 normals and 576x768 depth requests (17 kernel launches each), with
+   768x768 normals and 576x768 depth requests (17 attention kernel launches
+   each, no GroupNorm kernel: serving keeps `fused_gn_conv=False`), with
    latency and peak device memory;
-7. training parity, fp32 with TF32 off: one E2E train step's loss and
-   gradients (full-width SD2 UNet and VAE, seeded random weights, 256x256,
-   depth and normals, a mask with invalid pixels, UNet checkpointing) on the
-   CPU (plain path) and on the GPU (kernels), the launches of each kernel, and
-   a non-zero gradient at every UNet kernel site's q/k/v projections;
-8. training, slice D1's main path: `E2ETrainer` + `run_training` at 480x640,
-   batch 2, bf16 compute with fp32 master weights, on synthetic batches, with
-   the launches of each kernel per step, ms/step, img/s and peak device
-   memory; then two micro-steps with gradient accumulation 2, where only the
-   second moves the weights.
+7. training parity, fp32 with TF32 off, with the default
+   `fused_vae_kernels=True`: one E2E train step's loss and gradients
+   (full-width SD2 UNet and VAE, seeded random weights, 256x256, depth and
+   normals, a mask with invalid pixels, UNet checkpointing) on the CPU (plain
+   path) and on the GPU (kernels), the launches of each kernel (48 GN -> conv
+   pairs in the VAE), and a non-zero gradient at every UNet kernel site's
+   q/k/v projections;
+8. training, the main path of slices D1 and D2: `E2ETrainer` with the default
+   `TrainConfig` + `run_training` at 480x640, batch 2, bf16 compute with fp32
+   master weights, on synthetic batches, with the launches of each kernel per
+   step, ms/step, img/s and peak device memory; then two micro-steps with
+   gradient accumulation 2, where only the second moves the weights; then the
+   unfused VAE (`fused_vae_kernels=False`) and the fused one, a few steps
+   each, in turns (unfused, fused, fused, unfused), for the A/B; then one
+   step with the single-launch v2 kernel (`E2EFT_GNCONV_IMPL=v2`), whose loss
+   matches v1's.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is `{"ok": true, "device": {...}}`.
@@ -49,6 +62,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 # One card: every phase runs on cuda:0, and the result line counts what the
 # process can see. Set before torch touches CUDA.
@@ -86,13 +100,21 @@ BWD_CASES = [  # (B, L, N, D): the 480x640 bs-2 training sites, then ragged ones
     (2, 300, 3, 64),
     (3, 300, 1, 512),  # ragged: 18 * 16 + 12 (fp32), 9 * 32 + 12 / 18 * 16 + 12 (bf16)
 ]
+VAE_PAIRS = 48  # GN -> conv pairs of the SD2 VAE: 10 encoder + 14 decoder ResnetBlocks, two each
+
+
 # Kernel launches of one train step with UNet checkpointing: the frozen
 # encoder's mid attention takes the plain forward; each UNet kernel site runs
 # forward+LSE twice (the checkpoint recomputes it) and the backward once; the
-# decoder's mid attention runs forward+LSE and the backward once.
-def step_launches(unet_sites: int) -> dict:
+# decoder's mid attention runs forward+LSE and the backward once. With the
+# fused VAE (`gn`: "v1" or "v2", None for unfused) every GN -> conv pair of
+# the encoder and the decoder launches once; the backward recomputes the
+# plain composite.
+def step_launches(unet_sites: int, gn: Optional[str] = "v1") -> dict:
     return {"flash_attention_fwd": 1, "flash_attention_fwd_lse": 2 * unet_sites + 1,
-            "flash_attention_bwd_dq": unet_sites + 1, "flash_attention_bwd_dkv": unet_sites + 1}
+            "flash_attention_bwd_dq": unet_sites + 1, "flash_attention_bwd_dkv": unet_sites + 1,
+            "gn_channel_stats": VAE_PAIRS * (gn == "v1"), "gn_silu_conv3x3": VAE_PAIRS * (gn == "v1"),
+            "gn_silu_conv3x3_v2": VAE_PAIRS * (gn == "v2")}
 
 
 UNET_SITES_256 = 10  # UNet self-attention sites in the kernels' envelope at 256x256 (1024 and 256 tokens)
@@ -103,6 +125,33 @@ PARITY_LEAVES = ["conv_in.weight"] + [
     f"down_blocks.0.attentions.0.transformer_blocks.0.attn1.{p}.weight" for p in ("to_q", "to_k", "to_v", "to_out.0")
 ]
 TRAIN_STEPS = 5  # optimizer steps on the training main path (the first is the warm-up)
+AB_STEPS = 4  # steps of each arm of the fused / unfused A/B (the first is the warm-up)
+V2_LOSS_BOUND = 1e-2  # bf16 step loss, v2 vs v1 relative: a, b folded in another order, through bf16 networks
+# (B, C, H, W, Cout): every GN -> conv shape of the 480x640 bs-2 frozen SD2 VAE, then ragged ones
+GN_CASES = [
+    (2, 128, 480, 640, 128), (2, 256, 480, 640, 128), (2, 128, 240, 320, 256), (2, 256, 240, 320, 256),
+    (2, 512, 240, 320, 256), (2, 256, 120, 160, 512), (2, 512, 120, 160, 512), (2, 512, 60, 80, 512),
+    (1, 128, 37, 53, 128),  # ragged: 1961 pixels = 15 * 128 + 41; odd rows for the 16-byte vectors
+    (2, 256, 1, 77, 128),  # H = 1: every tap but the middle row is padding
+    (3, 128, 9, 9, 96),  # Cout ragged for the 64-wide channel tiles
+]
+GN_BOUND = {torch.float32: FP32_BOUND, torch.bfloat16: BF16_BOUND}  # max|d| / max(1, max|plain fp32|)
+
+
+def kernel_modules() -> tuple:
+    from diffusion_e2e_ft_tpu_torch.kernels import flash_attention, gn_conv, groupnorm
+
+    return flash_attention, groupnorm, gn_conv
+
+
+def reset_launches() -> None:
+    for module in kernel_modules():
+        module.reset_launches()
+
+
+def read_launches() -> dict:
+    """Every kernel's launches since the last `reset_launches()`."""
+    return {name: n for module in kernel_modules() for name, n in module.launches.items()}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -217,6 +266,66 @@ def phase_backward(fa) -> dict:
     return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1]} for name in worst}
 
 
+def phase_gn_kernels() -> dict:
+    """The GroupNorm statistics kernel and the fused GN(+SiLU) -> conv3x3
+    kernels (v1: statistics, fold, conv; v2: one cooperative launch) against
+    their plain versions in fp32 on the same values, and their times beside
+    the plain versions' in the same dtype."""
+    from diffusion_e2e_ft_tpu_torch.kernels import gn_conv as gc
+    from diffusion_e2e_ft_tpu_torch.kernels import groupnorm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale + shift
+
+    worst = dict.fromkeys(("gn_channel_stats", "gn_silu_conv3x3", "gn_silu_conv3x3_v2"), 0.0)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bound = GN_BOUND[dtype]
+        for case in GN_CASES:
+            b, c, h, w, co = case
+            silu = (h, w) != (37, 53)  # one case without the SiLU
+            x = randn(b, c, h, w, shift=0.5).to(dtype)
+            gw, gb = randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5)  # a non-zero GroupNorm bias
+            weight = randn(co, c, 3, 3, scale=(9 * c) ** -0.5).to(dtype)  # the compute dtype's values
+            bias = randn(co, scale=0.1)
+            gn_args = (gw, gb, 32, 1e-6, weight, bias, silu)
+            stats = gn.channel_stats(x)
+            want_stats = gn.channel_stats_reference(x)
+            outs = {}
+            for form in ("v1", "v2"):
+                os.environ["E2EFT_GNCONV_IMPL"] = form
+                outs[form] = gc.gn_conv_kernel(x, *gn_args)
+            torch.cuda.synchronize()
+            want = gc.gn_conv_reference(x.float(), gw, gb, 32, 1e-6, weight.float(), bias, silu)
+            errs = {"gn_channel_stats": rel_err(stats, want_stats), "gn_silu_conv3x3": rel_err(outs["v1"], want),
+                    "gn_silu_conv3x3_v2": rel_err(outs["v2"], want)}
+            for name, got in (("gn_silu_conv3x3", outs["v1"]), ("gn_silu_conv3x3_v2", outs["v2"])):
+                check(got.dtype == dtype and got.shape == (b, co, h, w), f"{name} {got.dtype} {tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()), f"{name} not finite at {case} {dtype}")
+            for name, (err, rel) in errs.items():
+                check(rel <= bound, f"{name} kernel vs plain max|d|/max(1,|plain|) {rel} > {bound} at {case} {dtype}")
+                worst[name] = max(worst[name], err)
+            v2_v1 = rel_err(outs["v2"], outs["v1"].float())[1]
+
+            t = {"gn_channel_stats": (time_ms(lambda: gn.channel_stats(x)),
+                                      time_ms(lambda: gn.channel_stats_reference(x)))}
+            plain_ms = time_ms(lambda: gc.gn_conv_reference(x, *gn_args))
+            for form, name in (("v1", "gn_silu_conv3x3"), ("v2", "gn_silu_conv3x3_v2")):
+                os.environ["E2EFT_GNCONV_IMPL"] = form
+                t[name] = (time_ms(lambda: gc.gn_conv_kernel(x, *gn_args)), plain_ms)
+            os.environ.pop("E2EFT_GNCONV_IMPL")
+            print(f"[gn] {str(dtype):15s} B,C,H,W={case[:4]} -> {co}{'' if silu else ' (no SiLU)'}: "
+                  "max|d|/max(1,|plain|) " + ", ".join(f"{n.replace('gn_', '')} {e[1]:.2e}" for n, e in errs.items())
+                  + f" (bound {bound}), v2 vs v1 {v2_v1:.2e}; ms kernel/plain: "
+                  + ", ".join(f"{n.replace('gn_', '')} {a:.3f}/{p:.3f}" for n, (a, p) in t.items()), flush=True)
+            if dtype == torch.bfloat16 and case == GN_CASES[0]:
+                times = t
+            del x, stats, want_stats, outs, want
+    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1]} for name in worst}
+
+
 def phase_e2e_parity(fa):
     from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
@@ -232,7 +341,7 @@ def phase_e2e_parity(fa):
     gpu = MarigoldPipeline(cpu.unet, cpu.vae, cpu.scheduler_config, cpu.empty_text_embed,
                            device="cuda", dtype=torch.float32)
     for task, ref in want.items():
-        fa.reset_launches()
+        reset_launches()
         got = gpu.infer(rgb.cuda(), normals=task == "normals")
         torch.cuda.synchronize()
         launches = fa.launches["flash_attention_fwd"]
@@ -308,7 +417,7 @@ def phase_serving(fa, fp32_pipe) -> int:
     latencies: dict = {}
 
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()  # the main path's run starts here
+    reset_launches()  # the main path's run starts here
     for task, hw in requests:
         before = fa.launches["flash_attention_fwd"]
         torch.cuda.synchronize()
@@ -325,14 +434,14 @@ def phase_serving(fa, fp32_pipe) -> int:
         else:
             norms = np.linalg.norm(pred, axis=-1)
             check(bool((norms <= 1.0 + 1e-3).all()), f"normals {hw}: norm above 1")
-    launches = dict(fa.launches)  # ... and ends here
+    launches = read_launches()  # ... and ends here
     peak = torch.cuda.max_memory_allocated() / 2**30
     for (task, hw), ms in latencies.items():
         print(f"[serve] bf16 {task} {hw[0]}x{hw[1]}: latency ms {[round(x, 2) for x in ms]} "
               f"(median {statistics.median(ms):.2f})", flush=True)
     print(f"[serve] peak device memory {peak:.3f} GiB; kernel launches {launches} "
           f"over {len(requests)} requests", flush=True)
-    # serving needs no gradient: the plain forward kernel only
+    # serving needs no gradient: the plain forward kernel only, and no GN -> conv kernel (fused_gn_conv=False)
     check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": SITES_768 * len(requests)},
           f"serving launched {launches}")
     return launches["flash_attention_fwd"]
@@ -368,24 +477,23 @@ def kernel_sites(unet) -> tuple:
 
 
 def phase_train_parity(fa, cpu_unet, cpu_vae, empty):
-    """One train step's loss and gradients, fp32: CPU (plain) vs GPU (kernels).
-    Returns the GPU copies of the models."""
+    """One train step's loss and gradients, fp32, with the default fused VAE:
+    CPU (plain) vs GPU (kernels). Returns the GPU copies of the models."""
     from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
 
     gpu_unet, gpu_vae = copy.deepcopy(cpu_unet).cuda(), copy.deepcopy(cpu_vae).cuda()
     sites, handles = kernel_sites(gpu_unet)
     rng = np.random.default_rng(2)
     for modality in ("depth", "normals"):
-        config = TrainConfig(modality=modality, fused_vae_kernels=False, gradient_checkpointing=True,
-                             gradient_accumulation_steps=1)
+        config = TrainConfig(modality=modality, gradient_checkpointing=True, gradient_accumulation_steps=1)
         batch = synthetic_batch(rng, 1, 256, 256, modality, invalid=0.2)
         t0 = time.perf_counter()
         loss_c, _, grads_c = E2ETrainer(config, cpu_unet, cpu_vae, empty).value_and_grad(batch)
         t1 = time.perf_counter()
-        fa.reset_launches()
+        reset_launches()
         loss_g, _, grads_g = E2ETrainer(config, gpu_unet, gpu_vae, empty).value_and_grad(batch)
         torch.cuda.synchronize()
-        launches = dict(fa.launches)
+        launches = read_launches()
         norm_c = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_c.values()])))
         norm_g = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_g.values()])))
         loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
@@ -414,9 +522,28 @@ def phase_train_parity(fa, cpu_unet, cpu_vae, empty):
     return gpu_unet, gpu_vae
 
 
-def phase_train(fa, unet, vae, empty) -> dict:
-    """The training main path: E2ETrainer + run_training at 480x640 bs 2, bf16
-    compute, fp32 masters; returns the kernel launches of that run."""
+def timed_steps(trainer, state, batches) -> tuple:
+    """One train step per batch, host clock synchronized around each: (state,
+    ms per step, launches per step, losses)."""
+    ms, per_step, losses = [], [], []
+    for batch in batches:
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(float(metrics["loss"]))
+    return state, ms, per_step, losses
+
+
+def phase_train(unet, vae, empty) -> dict:
+    """The training main path: E2ETrainer with the default TrainConfig (fused
+    VAE) + run_training at 480x640 bs 2, bf16 compute, fp32 masters; then
+    accumulation 2, the fused / unfused A/B and the v2 step. Returns the
+    kernel launches of the main run, and the v2 launches of the v2 step."""
     from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
     from diffusion_e2e_ft_tpu_torch.training.loop import run_training
 
@@ -424,30 +551,32 @@ def phase_train(fa, unet, vae, empty) -> dict:
     batches = [synthetic_batch(rng, 2, 480, 640, "depth", invalid=0.0) for _ in range(TRAIN_STEPS)]
     watched = PARITY_LEAVES[:2]
     with tempfile.TemporaryDirectory() as out_dir:
-        config = TrainConfig(fused_vae_kernels=False, gradient_checkpointing=True, gradient_accumulation_steps=1,
-                             lr_warmup_steps=0, train_batch_size=2, max_train_steps=TRAIN_STEPS,
-                             checkpointing_steps=10 * TRAIN_STEPS, output_dir=out_dir)
+        config = TrainConfig(gradient_checkpointing=True, gradient_accumulation_steps=1, lr_warmup_steps=0,
+                             train_batch_size=2, max_train_steps=TRAIN_STEPS, checkpointing_steps=10 * TRAIN_STEPS,
+                             output_dir=out_dir)
+        check(config.fused_vae_kernels, "the default TrainConfig runs the fused VAE kernels")
         trainer = E2ETrainer(config, unet, vae, empty, compute_dtype=torch.bfloat16)
         step_ms, per_step = [], []
         train_step = trainer.train_step
 
         def timed_step(state, batch):  # synchronized host clock and launches, per step
-            before = dict(fa.launches)
+            before = read_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = train_step(state, batch)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            per_step.append({k: fa.launches[k] - before[k] for k in before})
+            after = read_launches()
+            per_step.append({k: after[k] - before[k] for k in after})
             return out
 
         trainer.train_step = timed_step
         start = {n: dict(unet.named_parameters())[n].detach().clone() for n in watched}
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()  # the main path's run starts here
+        reset_launches()  # the main path's run starts here
         state = run_training(trainer, trainer.init_state(), lambda epoch: batches, log_every=1)
         torch.cuda.synchronize()
-        launches = dict(fa.launches)  # ... and ends here
+        launches = read_launches()  # ... and ends here
         peak = torch.cuda.max_memory_allocated() / 2**30
         logs = [json.loads(line) for line in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
     check(state.step == TRAIN_STEPS and len(logs) == TRAIN_STEPS, f"ran {state.step} steps, {len(logs)} logged")
@@ -478,6 +607,40 @@ def phase_train(fa, unet, vae, empty) -> dict:
           "accumulation 2: weights did not move at the second micro-step")
     print(f"[train] accumulation 2: weights unchanged after micro-step 1, moved after micro-step 2 "
           f"(grad norm {float(m['grad_norm']):.4f})", flush=True)
+    del state, trainer
+
+    # the A/B on this card, in turns: the frozen VAE's resnet pairs plain, fused, fused, plain
+    arms: dict = {False: [], True: []}
+    for fused in (False, True, True, False):
+        trainer = E2ETrainer(config.replace(fused_vae_kernels=fused), unet, vae, empty, compute_dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        state, ms, per_step, _ = timed_steps(trainer, trainer.init_state(), batches[:AB_STEPS])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = step_launches(UNET_SITES_480x640, "v1" if fused else None)
+        check(all(s == want for s in per_step), f"fused_vae_kernels={fused}: launches per step {per_step}")
+        arms[fused] += ms[1:]
+        print(f"[train-ab] bf16 480x640 bs 2, fused_vae_kernels={fused}: ms/step {[round(x, 1) for x in ms]} "
+              f"(the first is the warm-up), peak device memory {peak:.3f} GiB", flush=True)
+        del state, trainer
+    print("[train-ab] median ms/step after the warm-ups: " + ", ".join(
+        f"fused_vae_kernels={f} {statistics.median(v):.1f} ({2e3 / statistics.median(v):.2f} img/s)"
+        for f, v in arms.items()), flush=True)
+
+    # one step with the single-launch v2 kernel, from the state v1's loss was taken at
+    trainer = E2ETrainer(config, unet, vae, empty, compute_dtype=torch.bfloat16)
+    state = trainer.init_state()
+    loss_v1 = float(trainer.value_and_grad(batches[0])[0])
+    os.environ["E2EFT_GNCONV_IMPL"] = "v2"
+    reset_launches()  # the v2 path's run starts here
+    state, ms, per_step, losses = timed_steps(trainer, state, batches[:1])
+    v2_launches = read_launches()  # ... and ends here
+    os.environ.pop("E2EFT_GNCONV_IMPL")
+    rel = abs(losses[0] - loss_v1) / abs(loss_v1)
+    print(f"[train-v2] E2EFT_GNCONV_IMPL=v2, one step: loss {losses[0]:.6f} vs v1 {loss_v1:.6f} (rel {rel:.2e}, "
+          f"bound {V2_LOSS_BOUND}), {ms[0]:.1f} ms; launches {per_step[0]}", flush=True)
+    check(per_step[0] == step_launches(UNET_SITES_480x640, "v2"), f"v2 step launches {per_step[0]}")
+    check(np.isfinite(losses[0]) and rel <= V2_LOSS_BOUND, f"v2 loss {losses[0]} vs v1 {loss_v1}")
+    launches["gn_silu_conv3x3_v2"] = v2_launches["gn_silu_conv3x3_v2"]
     return launches
 
 
@@ -503,7 +666,7 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
     _build.load_library()
 
-    numbers = {"flash_attention_fwd": phase_kernels(fa), **phase_backward(fa)}
+    numbers = {"flash_attention_fwd": phase_kernels(fa), **phase_backward(fa), **phase_gn_kernels()}
     launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa))}  # no reference kept to its weights
     torch.cuda.empty_cache()
 
@@ -514,21 +677,27 @@ def main() -> int:
     empty = np.random.default_rng(1).normal(size=(1, 77, 1024)).astype(np.float32)  # a 77-token text context
     unet, vae = phase_train_parity(fa, cpu.unet, cpu.vae, empty)
     del cpu
-    trained = phase_train(fa, unet, vae, empty)
+    trained = phase_train(unet, vae, empty)
     launches.update({k: v for k, v in trained.items() if k != "flash_attention_fwd"})
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
 
-    sources = {"fwd": "flash_attention.cu", "bwd": "flash_attention_bwd.cu"}
-    replaces = {"flash_attention_fwd": 114, "flash_attention_fwd_lse": 294, "flash_attention_bwd_dq": 374,
-                "flash_attention_bwd_dkv": 407}
+    table = {  # kernel: (source under csrc/, the TPU kernel under diffusion_e2e_ft_tpu/kernels/)
+        "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:114"),
+        "flash_attention_fwd_lse": ("flash_attention.cu", "flash_attention.py:294"),
+        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention.py:374"),
+        "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention.py:407"),
+        "gn_channel_stats": ("groupnorm.cu", "groupnorm.py:88"),
+        "gn_silu_conv3x3": ("gn_conv.cu", "gn_conv.py:80"),
+        "gn_silu_conv3x3_v2": ("gn_conv.cu", "gn_conv.py:209"),
+    }
     kernels = [{
         "name": name,
         "route": "cuda",
-        "source": "diffusion_e2e_ft_tpu_torch/csrc/" + sources["bwd" if "bwd" in name else "fwd"],
-        "replaces": f"diffusion_e2e_ft_tpu/kernels/flash_attention.py:{line}",
+        "source": f"diffusion_e2e_ft_tpu_torch/csrc/{source}",
+        "replaces": f"diffusion_e2e_ft_tpu/kernels/{replaces}",
         "launches": launches[name],
         **numbers[name],
-    } for name, line in replaces.items()]
+    } for name, (source, replaces) in table.items()]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

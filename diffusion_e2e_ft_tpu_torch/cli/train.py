@@ -10,8 +10,10 @@ the frozen text tower copied in.
     python -m diffusion_e2e_ft_tpu_torch.cli.train --pretrained_model_name_or_path <dir> \\
         --hypersim_root data/hypersim --vkitti_root data/virtual_kitti_2 --half_precision
 
-The trainer runs with `fused_vae_kernels=False`: the fused GroupNorm+SiLU->conv
-kernels are slice D2. Data-parallel training (`--num_devices` > 1) is slice F.
+The trainer runs `TrainConfig`'s defaults beyond the flags below, as the JAX
+CLI does: the frozen VAE's resnet pairs go through the fused
+GroupNorm+SiLU->conv kernels on the card (`fused_vae_kernels=True`).
+Data-parallel training (`--num_devices` > 1) is slice F.
 """
 
 from __future__ import annotations
@@ -83,7 +85,6 @@ def main(argv=None):
         train_batch_size=args.train_batch_size,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         gradient_checkpointing=args.gradient_checkpointing,
-        fused_vae_kernels=False,
         use_ema=args.use_ema,
         e2e=not args.no_e2e,
         seed=args.seed,

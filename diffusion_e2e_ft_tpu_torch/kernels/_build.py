@@ -5,7 +5,8 @@ source, all started together, and the objects are linked into one shared
 library with a plain C interface. The library goes into `_build/<hash>/`
 beside the package (listed in `.gitignore`), keyed by a hash of the sources,
 the headers and the flags, so an edited source rebuilds and an unchanged one
-loads at once. The build runs at first use, never at import time.
+loads at once. The build runs at first use, never at import time. `launch`
+calls an entry point on a tensor's device and stream and counts the launch.
 """
 
 from __future__ import annotations
@@ -18,11 +19,15 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libe2eft_kernels.so"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the `dtype` argument of the C entry points
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas", "-v",
@@ -96,17 +101,34 @@ def build() -> tuple[Path, float, str]:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C functions' signatures."""
+    """Build if needed, load, and declare the C functions' signatures (each
+    ends with the stream)."""
     lib = ctypes.CDLL(str(build()[0]))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    sizes = [i32] * 6 + [ctypes.c_float, ctypes.POINTER(ctypes.c_int64), ptr]  # dtype B N Lq Lk D, scale, strides, stream
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    flash = [i32] * 6 + [f32, ctypes.POINTER(ctypes.c_int64), ptr]  # dtype B N Lq Lk D, scale, strides, stream
     signatures = {
-        "e2eft_flash_attention_fwd": [ptr] * 5,  # q, k, v, o, lse (null: no lse)
-        "e2eft_flash_attention_bwd_dq": [ptr] * 7,  # q, k, v, dO, lse, delta, dq
-        "e2eft_flash_attention_bwd_dkv": [ptr] * 8,  # q, k, v, dO, lse, delta, dk, dv
+        "e2eft_flash_attention_fwd": [ptr] * 5 + flash,  # q, k, v, o, lse (null: no lse)
+        "e2eft_flash_attention_bwd_dq": [ptr] * 7 + flash,  # q, k, v, dO, lse, delta, dq
+        "e2eft_flash_attention_bwd_dkv": [ptr] * 8 + flash,  # q, k, v, dO, lse, delta, dk, dv
+        "e2eft_gn_channel_stats": [ptr, ptr, i32, i32, i32, i64, ptr],  # x, out, dtype, B, C, n
+        # x, ab, w, bias, out, dtype, silu, B, C, Cout, H, W
+        "e2eft_gn_silu_conv3x3": [ptr] * 5 + [i32] * 7 + [ptr],
+        # x, gn weight, gn bias, w, bias, out, stats, dtype, silu, B, C, Cout, H, W, groups, eps
+        "e2eft_gn_silu_conv3x3_v2": [ptr] * 7 + [i32] * 8 + [f32, ptr],
     }
-    for name, pointers in signatures.items():
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
-        fn.argtypes = pointers + sizes
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(counts: dict, name: str, t: torch.Tensor, *args, entry: Optional[str] = None) -> None:
+    """Call the C entry point `e2eft_<entry or name>` on t's device and current
+    stream; raise if the launch failed, add one to `counts[name]` if not."""
+    fn = getattr(load_library(), "e2eft_" + (entry or name))
+    with torch.cuda.device(t.device):
+        err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (code {err}) at {tuple(t.shape)} {t.dtype}")
+    counts[name] += 1

@@ -32,9 +32,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from diffusion_e2e_ft_tpu_torch.kernels import _build
+
 # head dims the kernels are instantiated for (UNet d=64, VAE mid-block d=512)
 HEAD_DIMS = (64, 512)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
 # Kernel launches since the last `reset_launches()`, one count per kernel;
@@ -97,7 +98,7 @@ def flash_attention_bwd_reference(
 def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"flash_attention: {name} is on {t.device}, the kernel needs a CUDA tensor")
-    if t.dtype not in _DTYPE_CODES:
+    if t.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"flash_attention: {name} is {t.dtype}; the kernel takes float32 or bfloat16")
     if t.dtype != dtype or t.device != device:
         raise TypeError("flash_attention: q, k, v (and dO) must share dtype and device")
@@ -135,29 +136,16 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_int64 * len(values))(*values)
 
 
-def _launch(name: str, q: torch.Tensor, *args, entry: Optional[str] = None) -> None:
-    """Call the C entry point `e2eft_<entry or name>` on q's device and current
-    stream; raise if the launch failed, add one to kernel `name`'s count if not."""
-    from diffusion_e2e_ft_tpu_torch.kernels import _build
-
-    fn = getattr(_build.load_library(), "e2eft_" + (entry or name))
-    with torch.cuda.device(q.device):
-        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (code {err}) at {tuple(q.shape)} {q.dtype}")
-    launches[name] += 1
-
-
 def _forward(q, k, v, scale, with_lse: bool):
     _check(q, k, v)
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, lq, n), dtype=torch.float32, device=q.device) if with_lse else None
     # both variants are one C entry point; a null lse selects the plain forward
-    _launch(
-        "flash_attention_fwd_lse" if with_lse else "flash_attention_fwd", q,
+    _build.launch(
+        launches, "flash_attention_fwd_lse" if with_lse else "flash_attention_fwd", q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-        _DTYPE_CODES[q.dtype], b, n, lq, k.shape[1], d, _scale(q, scale), _strides(q, k, v, out),
+        _build.DTYPE_CODES[q.dtype], b, n, lq, k.shape[1], d, _scale(q, scale), _strides(q, k, v, out),
         entry="flash_attention_fwd",
     )
     return out, lse
@@ -191,9 +179,9 @@ def _bwd_launch(name, q, k, v, do, lse, delta, scale, outs):
             raise ValueError(f"flash_attention_bwd: {label} must be contiguous fp32 [{b}, {lq}, {n}]")
     # the C entry points take all seven stride triples; dq or dk/dv are placeholders where unused
     dq, dk, dv = (outs[0], q, k) if len(outs) == 1 else (q, *outs)
-    _launch(
-        name, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(t.data_ptr() for t in outs), _DTYPE_CODES[q.dtype], b, n, lq,
+    _build.launch(
+        launches, name, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(t.data_ptr() for t in outs), _build.DTYPE_CODES[q.dtype], b, n, lq,
         k.shape[1], d, _scale(q, scale), _strides(q, k, v, do, dq, dk, dv),
     )
 

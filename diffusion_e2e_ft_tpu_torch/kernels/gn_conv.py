@@ -1,0 +1,198 @@
+"""Fused GroupNorm(+SiLU) -> SAME 3x3 conv: the dispatcher, the plain
+composite, the Hopper kernels' wrappers and the autograd Function.
+
+Port of `diffusion_e2e_ft_tpu/kernels/gn_conv.py`, the resnet pairs of the
+frozen VAE in training (`VAEConfig.fused_gn_conv`). Tensors are NCHW and the
+conv weight OIHW, as the port's modules hold them.
+
+Kernels (CUDA C++ for sm_90a, see the sources' header notes for their design):
+
+- v1 (the default): `kernels/groupnorm.py::channel_stats` (`csrc/groupnorm.cu`,
+  replacing `_stats_kernel`), then `fold_stats` in plain torch, then
+  `csrc/gn_conv.cu`'s conv kernel (replacing `_conv_kernel`).
+- v2 (`E2EFT_GNCONV_IMPL=v2`, read at each call): `csrc/gn_conv.cu`'s
+  single cooperative launch, statistics + fold + conv (replacing
+  `_conv_kernel_v2`).
+
+`gn_silu_conv3x3` dispatches by device and a shape-only envelope: a CPU tensor
+takes the plain composite `gn_conv_reference`; a CUDA tensor inside the
+envelope launches v1 or v2, or raises, with no fallback; a tensor outside it
+takes the composite, as the JAX package does for ineligible shapes. The
+residual is added outside the kernel, in fp32.
+
+Compute dtype: the autocast dtype of x's device type when autocast is on
+there, else x's dtype. x and the weight are cast to it, the statistics and the
+normalization run in fp32, and the output is in it.
+
+`GNConvFunction` mirrors the JAX `_fused` custom_vjp: the forward is the
+kernel and saves only x and the parameters; the backward recomputes the plain
+composite and returns its vector-Jacobian product for the inputs that need
+one. It takes its forward as an argument (`KERNELS` or `PLAIN`), so the CPU
+tests run the same wiring with the plain version.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from diffusion_e2e_ft_tpu_torch.kernels import _build
+from diffusion_e2e_ft_tpu_torch.kernels.groupnorm import channel_stats, check_kernel_operand, group_norm_silu
+
+# Kernel launches since the last `reset_launches()`; the statistics kernel
+# counts in `groupnorm.launches`.
+launches = {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_v2": 0}
+IMPLS = ("v1", "v2")
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def impl() -> str:
+    """The kernel form, from `E2EFT_GNCONV_IMPL` (default v1), at call time."""
+    value = os.environ.get("E2EFT_GNCONV_IMPL", "v1")
+    if value not in IMPLS:
+        raise ValueError(f"E2EFT_GNCONV_IMPL={value!r}: expected one of {IMPLS}")
+    return value
+
+
+def in_envelope(channels: int, groups: int, kernel_size: Sequence[int]) -> bool:
+    """Shape-only predicate: which GN -> conv pairs the kernels serve. The JAX
+    envelope (`gn_conv.py:435-442`) without its VMEM term."""
+    return channels % groups == 0 and channels % 128 == 0 and tuple(kernel_size) == (3, 3)
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype
+
+
+def gn_conv_reference(
+    x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor, groups: int, eps: float,
+    weight: torch.Tensor, conv_bias: Optional[torch.Tensor], silu: bool = True,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain composite, as the JAX `_xla_gn_conv`: GroupNorm(+SiLU) with
+    fp32 statistics cast to the compute dtype, conv3x3 SAME in the compute
+    dtype, then the bias and the residual in fp32."""
+    dt = compute_dtype(x)
+    y = group_norm_silu(x.to(dt), gn_weight, gn_bias, groups, eps, silu)
+    out = F.conv2d(y, weight.to(dt), padding=1).float()
+    if conv_bias is not None:
+        out = out + conv_bias.float()[:, None, None]
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(dt)
+
+
+def fold_stats(
+    stats: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor, groups: int, eps: float, count: int
+) -> torch.Tensor:
+    """Per-channel sums [B, 2, C] over `count` values per channel -> fp32
+    [B, 2, C] (a, b) with GroupNorm(x) = x * a + b, as `gn_conv.py:151-162`."""
+    b, _, c = stats.shape
+    gs = c // groups
+    n = float(count * gs)
+    mean_g = stats[:, 0].reshape(b, groups, gs).sum(-1) / n
+    var_g = (stats[:, 1].reshape(b, groups, gs).sum(-1) / n - mean_g * mean_g).clamp_min(0.0)
+    inv_g = torch.rsqrt(var_g + eps)
+    a = inv_g.repeat_interleave(gs, dim=-1) * gn_weight.float()
+    return torch.stack([a, gn_bias.float() - mean_g.repeat_interleave(gs, dim=-1) * a], dim=1)
+
+
+def gn_conv_kernel(
+    x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor, groups: int, eps: float,
+    weight: torch.Tensor, conv_bias: Optional[torch.Tensor], silu: bool = True,
+) -> torch.Tensor:
+    """`gn_conv_reference` (without the residual) with the CUDA kernels, v1 or
+    v2 as `impl()` says. x: contiguous fp32 or bf16 [B, C, H, W] on the card;
+    weight [Cout, C, 3, 3], cast to x's dtype here."""
+    form = impl()
+    check_kernel_operand("gn_silu_conv3x3", "x", x)
+    if x.ndim != 4 or x.numel() == 0:
+        raise ValueError(f"gn_silu_conv3x3: x must be a non-empty [B, C, H, W], got {tuple(x.shape)}")
+    b, c, h, w = x.shape
+    cout = weight.shape[0]
+    if weight.shape != (cout, c, 3, 3) or not in_envelope(c, groups, weight.shape[2:]):
+        raise ValueError(f"gn_silu_conv3x3: x {tuple(x.shape)}, weight {tuple(weight.shape)}, {groups} groups "
+                         "are outside the kernels' envelope")
+    if b > 65535:
+        raise ValueError(f"gn_silu_conv3x3: batch {b} exceeds the kernel's grid")
+    # [Cout, 3, 3, C] in the compute dtype: each output channel's and tap's run of C contiguous
+    wk = weight.detach().to(x.dtype).permute(0, 2, 3, 1).contiguous()
+    bias = (conv_bias.detach().float().contiguous() if conv_bias is not None
+            else torch.zeros(cout, dtype=torch.float32, device=x.device))
+    for name, t in (("weight", wk), ("conv bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"gn_silu_conv3x3: {name} is on {t.device}, x on {x.device}")
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    head = (x.data_ptr(),)
+    tail = (wk.data_ptr(), bias.data_ptr(), out.data_ptr())
+    sizes = (_build.DTYPE_CODES[x.dtype], int(silu), b, c, cout, h, w)
+    if form == "v1":
+        ab = fold_stats(channel_stats(x), gn_weight, gn_bias, groups, eps, h * w)
+        _build.launch(launches, "gn_silu_conv3x3", x, *head, ab.data_ptr(), *tail, *sizes)
+    else:
+        gw, gb = (t.detach().float().contiguous() for t in (gn_weight, gn_bias))
+        stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+        _build.launch(launches, "gn_silu_conv3x3_v2", x, *head, gw.data_ptr(), gb.data_ptr(), *tail,
+                      stats.data_ptr(), *sizes, groups, float(eps))
+    return out
+
+
+# the forwards the autograd Function runs; its backward is always the plain composite's
+KERNELS: Callable[..., torch.Tensor] = gn_conv_kernel
+PLAIN: Callable[..., torch.Tensor] = gn_conv_reference
+
+
+class GNConvFunction(torch.autograd.Function):
+    """Differentiable GroupNorm(+SiLU) -> conv3x3 through `impl`'s forward.
+
+    The custom_fwd / custom_bwd decorators run the backward's recompute under
+    the forward's autocast state, so it sees the same compute dtype."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, gn_weight, gn_bias, weight, conv_bias, groups: int, eps: float, silu: bool,
+                impl: Callable[..., torch.Tensor]):
+        ctx.save_for_backward(x, gn_weight, gn_bias, weight, conv_bias)
+        ctx.groups, ctx.eps, ctx.silu = groups, eps, silu
+        return impl(x, gn_weight, gn_bias, groups, eps, weight, conv_bias, silu)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:5]
+        leaves = [t.detach().requires_grad_(n) if t is not None else None for t, n in zip(ctx.saved_tensors, need)]
+        x, gn_weight, gn_bias, weight, conv_bias = leaves
+        with torch.enable_grad():
+            out = gn_conv_reference(x, gn_weight, gn_bias, ctx.groups, ctx.eps, weight, conv_bias, ctx.silu)
+        grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n], grad_out))
+        return (*(next(grads) if n else None for n in need), None, None, None, None)
+
+
+def gn_silu_conv3x3(
+    x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor, groups: int, eps: float,
+    weight: torch.Tensor, conv_bias: Optional[torch.Tensor], silu: bool = True,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """GroupNorm(+SiLU) -> SAME 3x3 conv (+ residual): [B, C, H, W] -> [B, Cout,
+    H, W] in the compute dtype; weight [Cout, C, 3, 3]."""
+    if x.device.type != "cuda" or not in_envelope(x.shape[1], groups, weight.shape[2:]):
+        return gn_conv_reference(x, gn_weight, gn_bias, groups, eps, weight, conv_bias, silu, residual)
+    dt = compute_dtype(x)
+    x = x.to(dt).contiguous()
+    params = (gn_weight, gn_bias, weight, conv_bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, *params)):
+        out = GNConvFunction.apply(x, gn_weight, gn_bias, weight, conv_bias, groups, eps, silu, KERNELS)
+    else:  # no gradient wanted (the frozen encoder, serving): the kernel alone
+        out = gn_conv_kernel(x, gn_weight, gn_bias, groups, eps, weight, conv_bias, silu)
+    if residual is not None:
+        out = (out.float() + residual.float()).to(dt)
+    return out

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffusion_e2e_ft_tpu_torch import kernels
+from diffusion_e2e_ft_tpu_torch.kernels.gn_conv import gn_silu_conv3x3
 from diffusion_e2e_ft_tpu_torch.kernels.groupnorm import group_norm_silu
 
 
@@ -64,7 +65,13 @@ class GroupNormAct(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """GN -> SiLU -> conv3x3 (+ time-emb shift) -> GN -> SiLU -> conv3x3, residual."""
+    """GN -> SiLU -> conv3x3 (+ time-emb shift) -> GN -> SiLU -> conv3x3, residual.
+
+    With `fused=True` both GN+SiLU -> conv pairs go through
+    `kernels.gn_conv.gn_silu_conv3x3` (the fused kernels on the card, the
+    plain composite on the CPU), as the JAX package's `fused` ResnetBlock.
+    The parameters are the same modules either way, so state dicts are
+    interchangeable."""
 
     def __init__(
         self,
@@ -73,8 +80,10 @@ class ResnetBlock(nn.Module):
         groups: int = 32,
         eps: float = 1e-5,
         temb_channels: Optional[int] = None,
+        fused: bool = False,
     ):
         super().__init__()
+        self.fused = fused
         self.norm1 = GroupNormAct(groups, in_channels, eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (
@@ -87,12 +96,23 @@ class ResnetBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.fused:
+            return self._fused_forward(x, temb)
         h = self.conv1(self.norm1(x))
         if self.time_emb_proj is not None and temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         h = self.conv2(self.norm2(h))
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return residual + h
+
+    def _fused_forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+        n1, n2 = self.norm1, self.norm2
+        h = gn_silu_conv3x3(x, n1.weight, n1.bias, n1.groups, n1.eps, self.conv1.weight, self.conv1.bias)
+        if self.time_emb_proj is not None and temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return gn_silu_conv3x3(h, n2.weight, n2.bias, n2.groups, n2.eps, self.conv2.weight, self.conv2.bias,
+                               residual=residual)
 
 
 class Downsample(nn.Module):

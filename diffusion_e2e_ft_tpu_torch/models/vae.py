@@ -1,8 +1,8 @@
 """SD2 AutoencoderKL (VAE), NCHW, deterministic-mean latent path.
 
 Port of `diffusion_e2e_ft_tpu/models/vae.py`: `encode_mean` (posterior mean,
-no sampling) and `decode`. The fused GN->conv and sub-pixel upsampler options
-of the JAX package are not ported yet.
+no sampling) and `decode`, with the fused GN->conv option. The sub-pixel
+upsampler option of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,13 +33,19 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = SD_LATENT_SCALE
+    # Every ResnetBlock's GN+SiLU->conv pairs through the fused kernels
+    # (kernels/gn_conv.py); the same parameters and math. Off by default, as
+    # in the JAX package: `E2ETrainer` turns it on for its own VAE
+    # (TrainConfig.fused_vae_kernels), serving keeps it off.
+    fused_gn_conv: bool = False
 
 
 class _EncoderDown(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_downsample: bool, groups: int):
+    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_downsample: bool, groups: int, fused: bool):
         super().__init__()
         self.resnets = nn.ModuleList(
-            [ResnetBlock(in_ch if j == 0 else out_ch, out_ch, groups, eps=1e-6) for j in range(num_layers)]
+            [ResnetBlock(in_ch if j == 0 else out_ch, out_ch, groups, eps=1e-6, fused=fused)
+             for j in range(num_layers)]
         )
         self.downsamplers = (
             nn.ModuleList([Downsample(out_ch, asymmetric=True)]) if add_downsample else None
@@ -54,10 +60,10 @@ class _EncoderDown(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, channels: int, groups: int):
+    def __init__(self, channels: int, groups: int, fused: bool):
         super().__init__()
         self.resnets = nn.ModuleList(
-            [ResnetBlock(channels, channels, groups, eps=1e-6) for _ in range(2)]
+            [ResnetBlock(channels, channels, groups, eps=1e-6, fused=fused) for _ in range(2)]
         )
         self.attentions = nn.ModuleList([VAEAttention(channels, groups)])
 
@@ -75,12 +81,13 @@ class Encoder(nn.Module):
         self.down_blocks = nn.ModuleList(
             [
                 _EncoderDown(
-                    ch[max(i - 1, 0)], out, c.layers_per_block, i < len(ch) - 1, c.norm_num_groups
+                    ch[max(i - 1, 0)], out, c.layers_per_block, i < len(ch) - 1, c.norm_num_groups,
+                    c.fused_gn_conv,
                 )
                 for i, out in enumerate(ch)
             ]
         )
-        self.mid_block = _Mid(ch[-1], c.norm_num_groups)
+        self.mid_block = _Mid(ch[-1], c.norm_num_groups, c.fused_gn_conv)
         self.conv_norm_out = GroupNormAct(c.norm_num_groups, ch[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(ch[-1], 2 * c.latent_channels, 3, padding=1)
 
@@ -93,10 +100,11 @@ class Encoder(nn.Module):
 
 
 class _DecoderUp(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_upsample: bool, groups: int):
+    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_upsample: bool, groups: int, fused: bool):
         super().__init__()
         self.resnets = nn.ModuleList(
-            [ResnetBlock(in_ch if j == 0 else out_ch, out_ch, groups, eps=1e-6) for j in range(num_layers)]
+            [ResnetBlock(in_ch if j == 0 else out_ch, out_ch, groups, eps=1e-6, fused=fused)
+             for j in range(num_layers)]
         )
         self.upsamplers = nn.ModuleList([Upsample(out_ch)]) if add_upsample else None
 
@@ -113,11 +121,12 @@ class Decoder(nn.Module):
         super().__init__()
         up = tuple(reversed(c.block_out_channels))
         self.conv_in = nn.Conv2d(c.latent_channels, up[0], 3, padding=1)
-        self.mid_block = _Mid(up[0], c.norm_num_groups)
+        self.mid_block = _Mid(up[0], c.norm_num_groups, c.fused_gn_conv)
         self.up_blocks = nn.ModuleList(
             [
                 _DecoderUp(
-                    up[max(i - 1, 0)], out, c.layers_per_block + 1, i < len(up) - 1, c.norm_num_groups
+                    up[max(i - 1, 0)], out, c.layers_per_block + 1, i < len(up) - 1, c.norm_num_groups,
+                    c.fused_gn_conv,
                 )
                 for i, out in enumerate(up)
             ]

@@ -22,12 +22,18 @@ products (and the attention kernels) see bf16, as the JAX step computes in
 bf16 with fp32 params; the frozen VAE keeps its fp32 weights too. The losses
 run in fp32.
 
+The frozen VAE: the trainer runs its own module over the caller's weights
+(`frozen_vae`), with `fused_gn_conv` on when `fused_vae_kernels` is (the
+default, as in the JAX trainer): on the card its resnet pairs launch the
+fused GroupNorm+SiLU -> conv kernels (`kernels/gn_conv.py`), on the CPU they
+run the plain composite. The caller's module is left as it was (config,
+device, mode, requires_grad), so a serving pipeline that shares it keeps its
+own path.
+
 Not ported here, each raising `NotImplementedError` naming its slice: gaussian
 and pyramid noise with the pyramid schedule bank (slice C), the joint
 GeoWizard modality (slice B), `adam_mu_dtype` and the JAX remat policies
-(slice D3), and `fused_vae_kernels=True` on the GPU (slice D2; on the CPU the
-JAX package runs the plain composite there too, which is what the port's VAE
-always runs). Data-parallel `shard` / `place_frozen` belong to slice F.
+(slice D3). Data-parallel `shard` / `place_frozen` belong to slice F.
 """
 
 from __future__ import annotations
@@ -77,11 +83,17 @@ def check_ported(config: TrainConfig, device: torch.device) -> None:
             f"remat_policy={config.remat_policy!r} is a JAX checkpoint policy, not ported (slice D3); "
             "the port checkpoints the whole UNet (remat_policy=None)"
         )
-    if config.fused_vae_kernels and device.type == "cuda":
-        raise NotImplementedError(
-            "fused_vae_kernels=True needs the fused GroupNorm+SiLU->conv kernels, not ported yet "
-            "(slice D2); pass fused_vae_kernels=False"
-        )
+
+
+def frozen_vae(vae: AutoencoderKL, fused: bool, device: torch.device) -> AutoencoderKL:
+    """A frozen (eval, no grad) module of its own on `device`, with
+    `fused_gn_conv=fused`, over `vae`'s weights: their storage is shared when
+    `vae` already lies on `device`, copied there when not. `vae` itself is
+    not changed."""
+    with torch.device("meta"):
+        own = AutoencoderKL(dataclasses.replace(vae.config, fused_gn_conv=fused))
+    own.load_state_dict(vae.state_dict(), assign=True)
+    return own.to(device).eval().requires_grad_(False)
 
 
 class E2ETrainer:
@@ -102,7 +114,7 @@ class E2ETrainer:
         self.config = config
         self.compute_dtype = compute_dtype
         self.unet = unet.float().requires_grad_(True)
-        self.vae = vae.to(self.device).eval().requires_grad_(False)
+        self.vae = frozen_vae(vae, config.fused_vae_kernels or vae.config.fused_gn_conv, self.device)
         self.empty_text_embed = torch.as_tensor(np.asarray(empty_text_embed), dtype=torch.float32).to(self.device)
         self.scheduler_config = scheduler_config or sched_ops.SchedulerConfig(
             prediction_type=config.prediction_type

@@ -42,6 +42,7 @@ REQUESTS = 3  # warm requests under the profiler
 KINDS = (
     ("flash attention fwd (ours)", ("flash_fwd_kernel",)),
     ("flash attention bwd (ours)", ("flash_bwd_",)),
+    ("GN -> conv and GN stats (ours)", ("gn_conv", "channel_stats_kernel")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "cublas", "nvjet")),

@@ -1,12 +1,12 @@
 """Where the time goes in a bf16 E2E train step of the PyTorch port, on one GPU.
 
-    python3 perf/torch_profile_train.py [--out output/torch_profile_train.txt]
+    python3 perf/torch_profile_train.py [--unfused] [--out output/torch_profile_train.txt]
 
 A full-width SD2 UNet and VAE (`UNetConfig.sd2()`, `VAEConfig()`) with seeded
 random weights train at 480x640, batch 2, as `chip_smoke.py`'s training phase
 does: fp32 master weights, bf16 compute under autocast, UNet checkpointing,
-`fused_vae_kernels=False`, K=1, synthetic batches. After two warm-up steps it
-prints:
+the default `fused_vae_kernels=True` (`--unfused`: False), K=1, synthetic
+batches. After two warm-up steps it prints:
 
 - the step's split, forward (encode + UNet + decode + loss) / backward /
   optimizer, from CUDA events around each, median of 5;
@@ -41,6 +41,7 @@ STEPS = 3  # steps under the profiler
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--unfused", action="store_true", help="fused_vae_kernels=False")
     ap.add_argument("--out", default="output/torch_profile_train.txt", help="per-op tables")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -51,8 +52,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     models = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=1, device="cuda")
     empty = np.random.default_rng(1).normal(size=(1, 77, 1024)).astype(np.float32)
-    config = TrainConfig(fused_vae_kernels=False, gradient_checkpointing=True, gradient_accumulation_steps=1,
-                         lr_warmup_steps=0)
+    config = TrainConfig(fused_vae_kernels=not args.unfused, gradient_checkpointing=True,
+                         gradient_accumulation_steps=1, lr_warmup_steps=0)
     trainer = E2ETrainer(config, models.unet, models.vae, empty, compute_dtype=torch.bfloat16)
     state = trainer.init_state()
     rng = np.random.default_rng(3)
@@ -98,7 +99,7 @@ def main() -> int:
         print(f"[train 480x640 bs 2]   {kind:28s} {ms / STEPS:8.2f} ms per step", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as tables:
-        tables.write(f"== train step 480x640 bs 2, {STEPS} steps\n")
+        tables.write(f"== train step 480x640 bs 2, fused_vae_kernels={config.fused_vae_kernels}, {STEPS} steps\n")
         tables.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=50,
                                                max_name_column_width=90))
     print(f"per-op tables: {args.out}", flush=True)

@@ -25,6 +25,8 @@ def test_port_modules_listed():
     mods = _port_modules()
     for expected in (
         "diffusion_e2e_ft_tpu_torch.kernels.flash_attention",
+        "diffusion_e2e_ft_tpu_torch.kernels.gn_conv",
+        "diffusion_e2e_ft_tpu_torch.kernels.groupnorm",
         "diffusion_e2e_ft_tpu_torch.pipelines.loading",
         "diffusion_e2e_ft_tpu_torch.cli.serve",
         "diffusion_e2e_ft_tpu_torch.cli.train",

@@ -4,8 +4,8 @@ the same numpy batches: the LR schedule, the config's JSON form, one step's
 loss and every gradient leaf (depth and normals, with and without UNet
 checkpointing), the parameters and EMA after two optimizer steps with K=1 and
 K=2 micro-steps (optax's clip, AdamW and MultiSteps semantics), the
-all-invalid mask, `fused_vae_kernels` on the CPU, and the options the port
-raises on.
+all-invalid mask, `fused_vae_kernels` on the CPU (against the plain path and
+against the JAX trainer's fused VAE), and the options the port raises on.
 
 Models are cut to two UNet levels and two VAE levels so the JAX side's jit
 compiles stay short. Tolerances: the loss 1e-5 relative, each gradient leaf
@@ -154,6 +154,42 @@ def test_fused_vae_kernels_on_cpu_matches_plain(weights):
     assert all(torch.equal(out[0][2][n], out[1][2][n]) for n in out[0][2])
 
 
+def test_fused_vae_loss_and_grads_match_jax(weights):
+    """Both trainers with fused_vae_kernels=True (their default): the JAX one
+    builds a fused_gn_conv VAE, the port its own fused module over the same
+    weights; off the TPU and the card both run the plain composite."""
+    cfg = dict(modality="depth", gradient_checkpointing=False, fused_vae_kernels=True, gradient_accumulation_steps=1)
+    jt, up, pt = trainers(weights, **cfg)
+    assert jt.vae.config.fused_gn_conv and pt.vae.config.fused_gn_conv
+    batch = make_batch("depth", seed=4)
+    (want_loss, _), want_grads = jax.jit(jax.value_and_grad(jt._loss, has_aux=True))(
+        up, jt._frozen(), {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.key(0)
+    )
+    loss, _, grads = pt.value_and_grad(batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    want_grads = state_dict(want_grads)
+    assert set(grads) == set(want_grads)
+    for name, g in grads.items():
+        bound = 1e-4 * max(1.0, float(want_grads[name].abs().max()))
+        assert float((g - want_grads[name]).abs().max()) <= bound, name
+
+
+def test_trainer_leaves_callers_vae_unchanged(weights):
+    """The trainer's fused VAE is a module of its own over the caller's
+    weights: the caller's config, mode and requires_grad stay as they were."""
+    _, vp, _ = weights
+    vae = load_into(AutoencoderKL(VAEConfig(**VAE)), vp).train()
+    before = {n: p.detach().clone() for n, p in vae.named_parameters()}
+    _, _, pt = trainers(weights, fused_vae_kernels=True)
+    pt = E2ETrainer(pt.config, pt.unet, vae, weights[2])
+    assert pt.vae is not vae and pt.vae.config.fused_gn_conv and not vae.config.fused_gn_conv
+    assert vae.training and all(p.requires_grad for p in vae.parameters())
+    assert not pt.vae.training and not any(p.requires_grad for p in pt.vae.parameters())
+    for name, p in pt.vae.named_parameters():  # the same storage on the same device
+        assert p.data_ptr() == dict(vae.named_parameters())[name].data_ptr()
+        assert torch.equal(p, before[name])
+
+
 @pytest.mark.parametrize(
     "override,device,error,match",
     [
@@ -162,15 +198,25 @@ def test_fused_vae_kernels_on_cpu_matches_plain(weights):
         (dict(adam_mu_dtype="bfloat16"), "cpu", NotImplementedError, "slice D3"),
         (dict(remat_policy="dots"), "cpu", NotImplementedError, "remat_policy=None"),
         (dict(modality="joint"), "cpu", NotImplementedError, "slice B"),
-        (dict(fused_vae_kernels=True), "cuda", NotImplementedError, "slice D2.*fused_vae_kernels=False"),
+        (dict(fused_vae_kernels=True), "cuda", None, None),  # slice D2 is ported: no error
         (dict(modality="segmentation"), "cpu", ValueError, "Unknown modality"),
     ],
     ids=["gaussian", "pyramid", "mu-dtype", "remat-policy", "joint", "fused-on-cuda", "unknown-modality"],
 )
 def test_unported_options_raise(override, device, error, match):
+    config = TrainConfig(fused_vae_kernels=False).replace(**override)
+    if error is None:
+        check_ported(config, torch.device(device))
+        return
     with pytest.raises(error, match=match):
-        check_ported(TrainConfig(fused_vae_kernels=False).replace(**override), torch.device(device))
+        check_ported(config, torch.device(device))
 
 
 def test_default_config_runs_on_cpu():
     check_ported(TrainConfig(), torch.device("cpu"))  # fused_vae_kernels=True is the plain path here
+
+
+def test_default_config_is_ported_on_cuda():
+    """fused_vae_kernels=True (the default) runs the fused kernels on the card;
+    the check needs no card."""
+    check_ported(TrainConfig(), torch.device("cuda"))
