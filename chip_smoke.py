@@ -9,13 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. the flash-attention forward kernel against its plain PyTorch version on
    the card, fp32 and bf16, at the serving path's attention shapes (768x768
    and 576x768, whose 432-token level is ragged for the kernel's tiles) and
-   ragged ones: max |delta| against the plain version in fp32, and both times
-   (CUDA events);
+   ragged ones: max |delta| / max |plain| against the plain version in fp32,
+   and both times (CUDA events);
 4. the backward kernels (forward+LSE, dq, dk/dv) through the autograd
    Function, against plain fp32 autograd on `flash_attention_reference`, at
    the 480x640 training shapes and ragged ones, fp32 and bf16, bounded by
-   max |delta| / max(1, max |plain|); each kernel's time beside its plain
-   version's;
+   max |delta| / max |plain|; each kernel's time beside its plain version's;
 4b. the GroupNorm kernels: the statistics kernel and the fused
    GroupNorm+SiLU -> conv3x3 kernels, v1 (statistics, fold, conv) and v2 (one
    cooperative launch), against their plain versions at every GN -> conv
@@ -46,9 +45,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    unfused VAE (`fused_vae_kernels=False`) and the fused one, a few steps
    each, in turns (unfused, fused, fused, unfused), for the A/B; then one
    step with the single-launch v2 kernel (`E2EFT_GNCONV_IMPL=v2`), whose loss
-   matches v1's.
+   matches v1's;
+9. GeoWizard's attention kernels: the forward at d = 40, 80 and 160 and the
+   heads-per-block forward (hp 2, 4, 8 at d = 40) against the plain version
+   (head by head in fp32) at the joint-attention shapes of 768x768 and
+   576x768 and ragged ones, fp32 and bf16, bounded as phase 3, with bf16
+   times beside the plain
+   version's and PyTorch's `scaled_dot_product_attention` (a yardstick only);
+10. GeoWizard end-to-end parity, fp32 with TF32 off: a full-width GeoWizard
+   (SD1.5 UNet with the class embedding and joint attention, the SD VAE, the
+   CLIP ViT-L/14 image tower) with seeded random weights runs one 256x256
+   and one 512x512 image on the CPU (plain path) and on the GPU (12 and 17
+   kernel launches; at 512x512 every head dim, 40, 80 and 160, runs inside
+   the model);
+11. GeoWizard serving, slice B's main path: the same weights written as an HF
+   pipeline directory with `image_encoder/`, loaded with
+   `GeoWizardPipeline.from_hf_dir` in bf16 on the default device, answering
+   768x768 and 576x768 requests for two domains (18 and 17 forward launches),
+   with latency and peak device memory; then one 768x768 request with
+   `E2EFT_FA_HP=2` (5 heads-per-block launches + 13 forward), which matches
+   the hp = 1 outputs.
 
-The line before the last is one JSON object with the kernels' numbers; the
+Every kernel's row in the JSON line carries its bound: the larger of the
+bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s (bf16,
+the H100 SXM's dense peaks), from this run's shapes, and the time of one
+PyTorch call that computes the same function (`library_ms`), timed here and
+used nowhere in the port. The line before the last is that JSON object; the
 last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -70,9 +92,13 @@ os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-FP32_BOUND = 1e-4  # kernel vs plain, fp32: summation order only
-BF16_BOUND = 2e-2  # kernel (bf16 in, bf16 P, bf16 out) vs plain in fp32
+# Kernel vs plain in fp32 on the same inputs, as max|d| / max|plain|: an
+# attention output is a softmax-weighted mean of V, so at 18432 keys its values
+# are ~0.01 and an absolute bound of 2e-2 would pass a wrong kernel.
+FP32_BOUND = 1e-4  # fp32: summation order only
+BF16_BOUND = 2e-2  # bf16 in, bf16 P, bf16 out; read 8.5e-3 at most (H100)
 E2E_BOUNDS = {  # fp32 pipeline output, GPU vs CPU (cuDNN vs CPU conv summation order)
     "depth": 1e-3,
     "normals": 5e-3,  # unit-normalizing amplifies differences where |decoded| is small
@@ -101,6 +127,26 @@ BWD_CASES = [  # (B, L, N, D): the 480x640 bs-2 training sites, then ragged ones
     (3, 300, 1, 512),  # ragged: 18 * 16 + 12 (fp32), 9 * 32 + 12 / 18 * 16 + 12 (bf16)
 ]
 VAE_PAIRS = 48  # GN -> conv pairs of the SD2 VAE: 10 encoder + 14 decoder ResnetBlocks, two each
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+GEO_ATTN_CASES = [  # (B, L, N, D): GeoWizard's joint self-attention (2L tokens), then ragged ones
+    (1, 18432, 8, 40),  # 768x768: level 0 (the tiles: 64 rows), level 1, level 2, mid block
+    (1, 4608, 8, 80),
+    (1, 1152, 8, 160),
+    (1, 288, 8, 160),
+    (1, 13824, 8, 40),  # 576x768 (its 216-token mid block is plain)
+    (1, 3456, 8, 80),
+    (1, 864, 8, 160),
+    (2, 300, 8, 40),  # ragged: 4 * 64 + 44
+    (1, 437, 8, 160),  # ragged: 6 * 64 + 53, 13 * 32 + 21 (fp32)
+    (3, 333, 2, 80),
+]
+MH_HEADS = (2, 4, 8)
+# forward launches per GeoWizard parity image: 10 UNet + 2 VAE at 256x256 (level 2's 128 joint
+# tokens and the mid block are plain), 15 + 2 at 512x512 (only the 128-token mid block is plain)
+GEO_PARITY_SITES = {256: 12, 512: 17}
+GEO_SITES = {(768, 768): 18, (576, 768): 17}  # ... per 768x768 / 576x768 request
+GEO_MH_SITES = 5  # the d=40 sites of a 768x768 request, under E2EFT_FA_HP=2
 
 
 # Kernel launches of one train step with UNet checkpointing: the frozen
@@ -111,7 +157,7 @@ VAE_PAIRS = 48  # GN -> conv pairs of the SD2 VAE: 10 encoder + 14 decoder Resne
 # the encoder and the decoder launches once; the backward recomputes the
 # plain composite.
 def step_launches(unet_sites: int, gn: Optional[str] = "v1") -> dict:
-    return {"flash_attention_fwd": 1, "flash_attention_fwd_lse": 2 * unet_sites + 1,
+    return {"flash_attention_fwd": 1, "flash_attention_fwd_mh": 0, "flash_attention_fwd_lse": 2 * unet_sites + 1,
             "flash_attention_bwd_dq": unet_sites + 1, "flash_attention_bwd_dkv": unet_sites + 1,
             "gn_channel_stats": VAE_PAIRS * (gn == "v1"), "gn_silu_conv3x3": VAE_PAIRS * (gn == "v1"),
             "gn_silu_conv3x3_v2": VAE_PAIRS * (gn == "v2")}
@@ -135,7 +181,7 @@ GN_CASES = [
     (2, 256, 1, 77, 128),  # H = 1: every tap but the middle row is padding
     (3, 128, 9, 9, 96),  # Cout ragged for the 64-wide channel tiles
 ]
-GN_BOUND = {torch.float32: FP32_BOUND, torch.bfloat16: BF16_BOUND}  # max|d| / max(1, max|plain fp32|)
+GN_BOUND = {torch.float32: FP32_BOUND, torch.bfloat16: BF16_BOUND}  # max|d| / max|plain fp32|
 
 
 def kernel_modules() -> tuple:
@@ -166,6 +212,35 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def roofline(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the bf16 peak and the bytes over the HBM rate."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def attention_bound(shape, dtype, matmuls: int, tensors: int, fp32_rows: int = 0) -> dict:
+    """`matmuls` L x L x d products per head, `tensors` [B, L, N, D] arrays in
+    `dtype` and `fp32_rows` [B, L, N] fp32 arrays read or written once."""
+    b, length, n, d = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return roofline(2.0 * matmuls * b * n * length * length * d,
+                 tensors * b * length * n * d * itemsize + fp32_rows * b * length * n * 4)
+
+
+def sdpa(q, k, v):
+    """PyTorch's fused attention on [B, L, N, D] tensors (a yardstick; the port never calls it)."""
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend PyTorch's dispatcher picks for `sdpa` on these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    t = (x.transpose(1, 2) for x in (q, k, v))
+    return SDPBackend(torch._fused_sdp_choice(*t)).name
+
+
 def time_ms(fn, reps: int = 10) -> float:
     """Median device time of one call, from CUDA events around each call."""
     fn()
@@ -181,6 +256,12 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |got - want|, that divided by max |want|), in fp32."""
+    err = (got.float() - want).abs().max().item()
+    return err, err / want.abs().max().item()
+
+
 def phase_kernels(fa) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst, serving = 0.0, None
@@ -190,25 +271,26 @@ def phase_kernels(fa) -> dict:
             out = fa.flash_attention(q, k, v)
             torch.cuda.synchronize()
             ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
-            err = (out.float() - ref).abs().max().item()
+            err, rel = rel_err(out, ref)
             check(bool(torch.isfinite(out).all()), f"kernel output not finite at {shape} {dtype}")
-            check(err <= bound, f"kernel vs plain max|d| {err} > {bound} at {shape} {dtype}")
+            check(rel <= bound, f"kernel vs plain max|d|/max|plain| {rel} > {bound} at {shape} {dtype}")
             ms = time_ms(lambda: fa.flash_attention(q, k, v))
             plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
             torch.cuda.synchronize()
-            print(f"[kernel] {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e} (bound {bound}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            roof = attention_bound(shape, dtype, matmuls=2, tensors=4)["bound_ms"]  # at the bf16 peak
+            print(f"[kernel] {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e}, /max|plain| {rel:.3e} "
+                  f"(bound {bound}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  + (f", roofline bound {roof:.4f} ms" if dtype == torch.bfloat16 else ""), flush=True)
             worst = max(worst, err)
             if dtype == torch.bfloat16 and shape == ATTN_CASES[0]:
-                serving = (ms, plain_ms)
+                library_ms = time_ms(lambda: sdpa(q, k, v))
+                print(f"[kernel] library: scaled_dot_product_attention ({sdpa_backend(q, k, v)}) "
+                      f"{library_ms:.4f} ms", flush=True)
+                serving = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           **attention_bound(shape, dtype, matmuls=2, tensors=4)}
             del q, k, v, out, ref
-    return {"max_abs_err": worst, "ms": serving[0], "plain_ms": serving[1]}
-
-
-def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
-    """(max |got - want|, that divided by max(1, max |want|)), in fp32."""
-    err = (got.float() - want).abs().max().item()
-    return err, err / max(1.0, want.abs().max().item())
+    return {"max_abs_err": worst, **serving}
 
 
 def phase_backward(fa) -> dict:
@@ -234,7 +316,7 @@ def phase_backward(fa) -> dict:
                 check(got.dtype == (torch.float32 if label == "lse" else dtype), f"{label} dtype {got.dtype}")
                 errs[label] = rel_err(got, want)
                 check(errs[label][1] <= bound,
-                      f"{label} kernel vs plain max|d|/max(1,|plain|) {errs[label][1]} > {bound} at {shape} {dtype}")
+                      f"{label} kernel vs plain max|d|/max|plain| {errs[label][1]} > {bound} at {shape} {dtype}")
             for name, labels in (("flash_attention_fwd_lse", ("out", "lse")), ("flash_attention_bwd_dq", ("dq",)),
                                  ("flash_attention_bwd_dkv", ("dk", "dv"))):
                 worst[name] = max(worst[name], *(errs[x][0] for x in labels))
@@ -256,14 +338,29 @@ def phase_backward(fa) -> dict:
                 "backward": (time_ms(lambda: fa.flash_attention_bwd(q, k, v, do, out, lse)),
                              time_ms(lambda: torch.autograd.grad(plain_out, plain, do, retain_graph=True))),
             }
-            print(f"[bwd] {str(dtype):15s} B,L,N,D={shape}: max|d|/max(1,|plain|) "
+            print(f"[bwd] {str(dtype):15s} B,L,N,D={shape}: max|d|/max|plain| "
                   + ", ".join(f"{x} {e[1]:.2e}" for x, e in errs.items()) + f" (bound {bound}); ms kernel/plain: "
                   + ", ".join(f"{n.replace('flash_attention_', '')} {a:.3f}/{b:.3f}" for n, (a, b) in t.items()),
                   flush=True)
             if dtype == torch.bfloat16 and shape == BWD_CASES[0]:
+                # the library: PyTorch's fused attention forward with its LSE (inputs that
+                # require grad), and its backward, which computes dq, dk and dv in one call
+                lib = [t.clone().requires_grad_() for t in (q, k, v)]
+                lib_out = sdpa(*lib)
+                lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, lib, do, retain_graph=True))
+                library = {"flash_attention_fwd_lse": time_ms(lambda: sdpa(*lib)),
+                           "flash_attention_bwd_dq": lib_bwd, "flash_attention_bwd_dkv": lib_bwd}
+                print(f"[bwd] library: scaled_dot_product_attention ({sdpa_backend(q, k, v)}) forward "
+                      f"{library['flash_attention_fwd_lse']:.3f} ms, backward (dq, dk, dv) {lib_bwd:.3f} ms",
+                      flush=True)
+                bounds = {"flash_attention_fwd_lse": attention_bound(shape, dtype, 2, 4, fp32_rows=1),
+                          "flash_attention_bwd_dq": attention_bound(shape, dtype, 3, 5, fp32_rows=2),
+                          "flash_attention_bwd_dkv": attention_bound(shape, dtype, 4, 6, fp32_rows=2)}
                 times = t
+                del lib, lib_out
             del q, k, v, do, out, lse, delta, plain, plain_out
-    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1]} for name in worst}
+    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1],
+                   "library_ms": library[name], **bounds[name]} for name in worst}
 
 
 def phase_gn_kernels() -> dict:
@@ -305,7 +402,7 @@ def phase_gn_kernels() -> dict:
                 check(got.dtype == dtype and got.shape == (b, co, h, w), f"{name} {got.dtype} {tuple(got.shape)}")
                 check(bool(torch.isfinite(got).all()), f"{name} not finite at {case} {dtype}")
             for name, (err, rel) in errs.items():
-                check(rel <= bound, f"{name} kernel vs plain max|d|/max(1,|plain|) {rel} > {bound} at {case} {dtype}")
+                check(rel <= bound, f"{name} kernel vs plain max|d|/max|plain| {rel} > {bound} at {case} {dtype}")
                 worst[name] = max(worst[name], err)
             v2_v1 = rel_err(outs["v2"], outs["v1"].float())[1]
 
@@ -317,13 +414,26 @@ def phase_gn_kernels() -> dict:
                 t[name] = (time_ms(lambda: gc.gn_conv_kernel(x, *gn_args)), plain_ms)
             os.environ.pop("E2EFT_GNCONV_IMPL")
             print(f"[gn] {str(dtype):15s} B,C,H,W={case[:4]} -> {co}{'' if silu else ' (no SiLU)'}: "
-                  "max|d|/max(1,|plain|) " + ", ".join(f"{n.replace('gn_', '')} {e[1]:.2e}" for n, e in errs.items())
+                  "max|d|/max|plain| " + ", ".join(f"{n.replace('gn_', '')} {e[1]:.2e}" for n, e in errs.items())
                   + f" (bound {bound}), v2 vs v1 {v2_v1:.2e}; ms kernel/plain: "
                   + ", ".join(f"{n.replace('gn_', '')} {a:.3f}/{p:.3f}" for n, (a, p) in t.items()), flush=True)
             if dtype == torch.bfloat16 and case == GN_CASES[0]:
+                # the library: per-(b, c) moments in one call; the composite GroupNorm -> SiLU ->
+                # cuDNN conv in three (no single PyTorch call computes the fused function)
+                stats_lib = time_ms(lambda: torch.var_mean(x, dim=(2, 3)))
+                conv_lib = time_ms(lambda: F.conv2d(F.silu(F.group_norm(x, 32, gw.to(dtype), gb.to(dtype), 1e-6)),
+                                                    weight, bias.to(dtype), padding=1))
+                print(f"[gn] library: torch.var_mean {stats_lib:.3f} ms; group_norm -> silu -> conv2d (3 calls) "
+                      f"{conv_lib:.3f} ms", flush=True)
+                library = {"gn_channel_stats": stats_lib, "gn_silu_conv3x3": conv_lib, "gn_silu_conv3x3_v2": conv_lib}
+                itemsize = x.element_size()
+                conv = roofline(2.0 * b * h * w * co * c * 9, (x.numel() + weight.numel() + b * co * h * w) * itemsize)
+                bounds = {"gn_channel_stats": roofline(3.0 * x.numel(), x.numel() * itemsize + b * 2 * c * 4),
+                          "gn_silu_conv3x3": conv, "gn_silu_conv3x3_v2": conv}
                 times = t
             del x, stats, want_stats, outs, want
-    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1]} for name in worst}
+    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1],
+                   "library_ms": library[name], **bounds[name]} for name in worst}
 
 
 def phase_e2e_parity(fa):
@@ -356,6 +466,21 @@ def phase_e2e_parity(fa):
     return gpu
 
 
+def write_hf_dir(path: str, parts: dict) -> None:
+    """An HF pipeline directory: each part (subfolder -> (module, config,
+    weights file)) in bf16 `.bin` files, and a trailing-DDIM scheduler."""
+    for sub, (module, config, fname) in parts.items():
+        os.makedirs(os.path.join(path, sub))
+        with open(os.path.join(path, sub, "config.json"), "w") as f:
+            json.dump(config, f)
+        torch.save({k: t.to("cpu", torch.bfloat16) for k, t in module.state_dict().items()},
+                   os.path.join(path, sub, fname))
+    os.makedirs(os.path.join(path, "scheduler"))
+    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump({"_class_name": "DDIMScheduler", "prediction_type": "v_prediction",
+                   "timestep_spacing": "trailing", "beta_schedule": "scaled_linear"}, f)
+
+
 def write_checkpoint(path: str, pipe, text_config) -> None:
     """HF pipeline directory of the pipeline's weights in bf16 `.bin` files,
     plus a text encoder with seeded random weights."""
@@ -366,29 +491,16 @@ def write_checkpoint(path: str, pipe, text_config) -> None:
     t = text_config
     te = clip.CLIPTextModel(t)
     init_random_(te, torch.Generator().manual_seed(1))
-    configs = {
-        "unet": loading.unet_config_to_hf(pipe.unet.config),
-        "vae": loading.vae_config_to_hf(pipe.vae.config),
-        "text_encoder": {
-            "vocab_size": t.vocab_size, "hidden_size": t.hidden_size, "num_hidden_layers": t.num_layers,
-            "num_attention_heads": t.num_heads, "intermediate_size": t.intermediate_size,
-            "max_position_embeddings": t.max_position_embeddings, "hidden_act": t.hidden_act,
-        },
+    text_json = {
+        "vocab_size": t.vocab_size, "hidden_size": t.hidden_size, "num_hidden_layers": t.num_layers,
+        "num_attention_heads": t.num_heads, "intermediate_size": t.intermediate_size,
+        "max_position_embeddings": t.max_position_embeddings, "hidden_act": t.hidden_act,
     }
-    for sub, module, fname in (
-        ("unet", pipe.unet, "diffusion_pytorch_model.bin"),
-        ("vae", pipe.vae, "diffusion_pytorch_model.bin"),
-        ("text_encoder", te, "pytorch_model.bin"),
-    ):
-        os.makedirs(os.path.join(path, sub))
-        with open(os.path.join(path, sub, "config.json"), "w") as f:
-            json.dump(configs[sub], f)
-        torch.save({k: t.to("cpu", torch.bfloat16) for k, t in module.state_dict().items()},
-                   os.path.join(path, sub, fname))
-    os.makedirs(os.path.join(path, "scheduler"))
-    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
-        json.dump({"_class_name": "DDIMScheduler", "prediction_type": "v_prediction",
-                   "timestep_spacing": "trailing", "beta_schedule": "scaled_linear"}, f)
+    write_hf_dir(path, {
+        "unet": (pipe.unet, loading.unet_config_to_hf(pipe.unet.config), "diffusion_pytorch_model.bin"),
+        "vae": (pipe.vae, loading.vae_config_to_hf(pipe.vae.config), "diffusion_pytorch_model.bin"),
+        "text_encoder": (te, text_json, "pytorch_model.bin"),
+    })
 
 
 def phase_serving(fa, fp32_pipe) -> int:
@@ -644,6 +756,186 @@ def phase_train(unet, vae, empty) -> dict:
     return launches
 
 
+def reference_by_head(fa, q, k, v) -> torch.Tensor:
+    """The plain version in fp32, one head at a time (the whole [1, 18432, 8, 40]
+    call would hold 11 GB of logits and a softmax copy)."""
+    heads = [fa.flash_attention_reference(*(t[:, :, h:h + 1].float() for t in (q, k, v))) for h in range(q.shape[2])]
+    return torch.cat(heads, dim=2)
+
+
+def phase_geowizard_kernels(fa) -> dict:
+    """The forward kernel at GeoWizard's head dims and the heads-per-block
+    kernel against the plain version, and their bf16 times beside the plain
+    version's and the library call's. Returns the two rows' numbers at the
+    768x768 level-0 shape (hp = 2 for the heads-per-block row)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_fwd_mh": 0.0}
+    row = None
+    for dtype, tol in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
+        for shape in GEO_ATTN_CASES:
+            q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
+            outs = {1: fa.flash_attention(q, k, v)}
+            if shape[-1] == 40:
+                outs.update({hp: fa.flash_attention_mh(q, k, v, None, hp) for hp in MH_HEADS})
+            torch.cuda.synchronize()
+            ref = reference_by_head(fa, q, k, v)
+            errs = {}
+            for hp, out in outs.items():
+                check(out.dtype == dtype and bool(torch.isfinite(out).all()), f"hp={hp} {shape} {dtype}: {out.dtype}")
+                errs[hp] = rel_err(out, ref)
+                check(errs[hp][1] <= tol,
+                      f"hp={hp} kernel vs plain max|d|/max|plain| {errs[hp][1]} > {tol} at {shape} {dtype}")
+                name = "flash_attention_fwd" if hp == 1 else "flash_attention_fwd_mh"
+                worst[name] = max(worst[name], errs[hp][0])
+            line = f"[geo-kernel] {str(dtype):15s} B,L,N,D={shape}: max|plain| {ref.abs().max().item():.3e}, " \
+                "max|d|/max|plain| " + ", ".join(f"hp={hp} {e[1]:.3e}" for hp, e in errs.items()) + f" (bound {tol})"
+            del ref
+            if dtype == torch.bfloat16:  # times in the serving dtype
+                ms = {hp: time_ms(lambda hp=hp: fa.flash_attention_mh(q, k, v, None, hp) if hp > 1
+                                  else fa.flash_attention(q, k, v)) for hp in outs}
+                plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), reps=5)
+                library_ms = time_ms(lambda: sdpa(q, k, v))
+                line += ("; ms " + ", ".join(f"hp={hp} {t:.4f}" for hp, t in ms.items())
+                         + f", plain {plain_ms:.4f}, library ({sdpa_backend(q, k, v)}) {library_ms:.4f}, "
+                         f"bound {attention_bound(shape, dtype, matmuls=2, tensors=4)['bound_ms']:.4f}")
+                if shape == GEO_ATTN_CASES[0]:
+                    numbers = {"plain_ms": plain_ms, "library_ms": library_ms,
+                               **attention_bound(shape, dtype, matmuls=2, tensors=4)}
+                    row = {"ms_hp1": ms[1], "ms": ms[2], **numbers}
+            print(line, flush=True)
+            del q, k, v, outs
+            torch.cuda.empty_cache()
+    return {"flash_attention_fwd_mh": {"max_abs_err": worst["flash_attention_fwd_mh"], "ms": row["ms"],
+                                       **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}},
+            "worst_fwd": worst["flash_attention_fwd"]}
+
+
+def geowizard_full_width(seed: int, device):
+    from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
+    from diffusion_e2e_ft_tpu_torch.models.clip import CLIPVisionConfig
+    from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline
+
+    return GeoWizardPipeline.from_random(UNetConfig.geowizard(), VAEConfig(), CLIPVisionConfig(), seed=seed,
+                                         device=device)
+
+
+def phase_geowizard_parity(fa):
+    """fp32 full-width GeoWizard, one 256x256 and one 512x512 image: CPU (plain)
+    vs GPU (kernels). The GPU pipeline takes the CPU one's modules (moved in
+    place), so every CPU output comes first."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline
+
+    t0 = time.perf_counter()
+    cpu = geowizard_full_width(seed=2, device="cpu")
+    print(f"[geo-e2e] random init on the cpu {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(6)
+    rgbs, wants = {}, {}
+    for size in GEO_PARITY_SITES:
+        img = rng.integers(0, 256, (1, size, size, 3)).astype(np.float32)
+        rgbs[size] = torch.from_numpy(img / 255.0 * 2.0 - 1.0)
+        t0 = time.perf_counter()
+        wants[size] = dict(zip(("depth", "normals"), cpu.infer(rgbs[size], "indoor")))
+        print(f"[geo-e2e] cpu fp32 {size}x{size} runs {time.perf_counter() - t0:.1f} s", flush=True)
+    gpu = GeoWizardPipeline(cpu.unet, cpu.vae, cpu.image_encoder, cpu.scheduler_config, device="cuda",
+                            dtype=torch.float32)
+    for size, sites in GEO_PARITY_SITES.items():
+        reset_launches()
+        got = dict(zip(("depth", "normals"), gpu.infer(rgbs[size].cuda(), "indoor")))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for task, ref in wants[size].items():
+            err = (got[task].cpu() - ref).abs().max().item()
+            print(f"[geo-e2e] fp32 {size}x{size} {task}, gpu vs cpu: max|d|={err:.3e} (bound {E2E_BOUNDS[task]})",
+                  flush=True)
+            check(bool(torch.isfinite(got[task]).all()), f"gpu GeoWizard {task} not finite")
+            check(err <= E2E_BOUNDS[task], f"fp32 GeoWizard {size} {task} gpu vs cpu max|d| {err} > {E2E_BOUNDS[task]}")
+        print(f"[geo-e2e] {size}x{size} kernel launches {launches}", flush=True)
+        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": sites},
+              f"GeoWizard {size}x{size} launched {launches}, expected {sites} forward")
+    return gpu
+
+
+def phase_geowizard_serving(fa, fp32_pipe) -> dict:
+    """Slice B's main path: an HF directory of the parity run's weights, loaded
+    with `GeoWizardPipeline.from_hf_dir` in bf16 on the default device, and
+    joint requests at 768x768 and 576x768; then one 768x768 request with
+    E2EFT_FA_HP=2. Returns the kernel launches of the path's run."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline, loading
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        p = fp32_pipe
+        write_hf_dir(ckpt, {
+            "unet": (p.unet, loading.unet_config_to_hf(p.unet.config), "diffusion_pytorch_model.bin"),
+            "vae": (p.vae, loading.vae_config_to_hf(p.vae.config), "diffusion_pytorch_model.bin"),
+            "image_encoder": (p.image_encoder, loading.vision_config_to_hf(p.image_encoder.config),
+                              "pytorch_model.bin"),
+        })
+        del fp32_pipe, p
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        pipe = GeoWizardPipeline.from_hf_dir(ckpt, dtype=torch.bfloat16)  # the device defaults to the card
+        torch.cuda.synchronize()
+        print(f"[geo-serve] wrote checkpoint {t1 - t0:.1f} s, from_hf_dir (bf16) {time.perf_counter() - t1:.1f} s "
+              f"on {pipe.device}", flush=True)
+    check(pipe.device.type == "cuda", f"from_hf_dir without a device put the pipeline on {pipe.device}")
+
+    rng = np.random.default_rng(7)
+    images = {hw: rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for hw in GEO_SITES}
+    t0 = time.perf_counter()
+    for hw, img in images.items():  # warm-up, outside the path's run
+        pipe(img, color_map=None)
+    torch.cuda.synchronize()
+    print(f"[geo-serve] warmup {time.perf_counter() - t0:.2f} s", flush=True)
+
+    requests = [(hw, domain) for hw in GEO_SITES for domain in ("indoor", "outdoor")] * 3
+    latencies, outputs = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the main path's run starts here
+    for hw, domain in requests:
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(images[hw], domain=domain, color_map=None)
+        torch.cuda.synchronize()
+        latencies.setdefault((hw, domain), []).append((time.perf_counter() - t0) * 1e3)
+        after = read_launches()
+        done = {k: after[k] - before[k] for k in after}
+        check(done == {**dict.fromkeys(done, 0), "flash_attention_fwd": GEO_SITES[hw]},
+              f"GeoWizard {hw} {domain}: launches {done}, expected {GEO_SITES[hw]} forward")
+        check(out.depth_np.shape == hw and out.normal_np.shape == hw + (3,), f"{hw}: shapes "
+              f"{out.depth_np.shape} {out.normal_np.shape}")
+        check(bool(np.isfinite(out.depth_np).all() and np.isfinite(out.normal_np).all()), f"{hw}: non-finite")
+        check(out.depth_np.min() >= 0.0 and out.depth_np.max() <= 1.0, f"depth {hw} outside [0, 1]")
+        check(bool((np.linalg.norm(out.normal_np, axis=-1) <= 1.0 + 1e-3).all()), f"normals {hw}: norm above 1")
+        outputs[(hw, domain)] = out
+    check(not np.array_equal(outputs[((768, 768), "indoor")].depth_np, outputs[((768, 768), "outdoor")].depth_np),
+          "the domain switcher does not change the depth")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    os.environ["E2EFT_FA_HP"] = "2"  # the heads-per-block kernel at the d=40 sites
+    before = read_launches()
+    mh = pipe(images[(768, 768)], domain="indoor", color_map=None)
+    torch.cuda.synchronize()
+    os.environ.pop("E2EFT_FA_HP")
+    launches = read_launches()  # ... and ends here
+    done = {k: launches[k] - before[k] for k in launches}
+    want = {**dict.fromkeys(done, 0), "flash_attention_fwd_mh": GEO_MH_SITES,
+            "flash_attention_fwd": GEO_SITES[(768, 768)] - GEO_MH_SITES}
+    check(done == want, f"E2EFT_FA_HP=2 request launched {done}")
+    ref = outputs[((768, 768), "indoor")]
+    mh_err = max(np.abs(mh.depth_np - ref.depth_np).max(), np.abs(mh.normal_np - ref.normal_np).max())
+    check(mh_err <= BF16_BOUND, f"E2EFT_FA_HP=2 vs hp=1 max|d| {mh_err} > {BF16_BOUND}")
+
+    for (hw, domain), ms in latencies.items():
+        print(f"[geo-serve] bf16 joint {hw[0]}x{hw[1]} {domain}: latency ms {[round(x, 2) for x in ms]} "
+              f"(median {statistics.median(ms):.2f})", flush=True)
+    print(f"[geo-serve] peak device memory {peak:.3f} GiB over {len(requests)} requests; "
+          f"E2EFT_FA_HP=2 768x768: launches {done}, max|d| vs hp=1 {mh_err:.3e}; "
+          f"the path's kernel launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch; this run needs one GPU")
@@ -679,10 +971,21 @@ def main() -> int:
     del cpu
     trained = phase_train(unet, vae, empty)
     launches.update({k: v for k, v in trained.items() if k != "flash_attention_fwd"})
+    del unet, vae, empty
+    torch.cuda.empty_cache()
+
+    geo = phase_geowizard_kernels(fa)
+    numbers["flash_attention_fwd_mh"] = geo["flash_attention_fwd_mh"]
+    numbers["flash_attention_fwd"]["max_abs_err"] = max(numbers["flash_attention_fwd"]["max_abs_err"], geo["worst_fwd"])
+    geo_path = phase_geowizard_serving(fa, phase_geowizard_parity(fa))
+    # the forward kernel's launches: slice A's and slice B's serving runs
+    launches["flash_attention_fwd"] += geo_path["flash_attention_fwd"]
+    launches["flash_attention_fwd_mh"] = geo_path["flash_attention_fwd_mh"]
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
 
     table = {  # kernel: (source under csrc/, the TPU kernel under diffusion_e2e_ft_tpu/kernels/)
         "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:114"),
+        "flash_attention_fwd_mh": ("flash_attention.cu", "flash_attention.py:181"),
         "flash_attention_fwd_lse": ("flash_attention.cu", "flash_attention.py:294"),
         "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention.py:374"),
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention.py:407"),

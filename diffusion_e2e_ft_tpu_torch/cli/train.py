@@ -2,8 +2,8 @@
 depth and normals trainers (the joint GeoWizard trainer is slice B).
 
 Flow: load a base HF checkpoint -> conv_in 4 -> 8 surgery when starting from
-raw SD2 with a noise type -> Hypersim + VirtualKITTI2 mixed 9:1 (the JAX
-package's JAX-free `data/` readers) -> the train step on one device ->
+raw SD2 with a noise type -> Hypersim + VirtualKITTI2 mixed 9:1 (the port's
+copies of the JAX package's numpy `data/` readers) -> the train step on one device ->
 periodic checkpoints -> final HF export with trailing scheduler spacing and
 the frozen text tower copied in.
 
@@ -57,8 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    from diffusion_e2e_ft_tpu.data.mixer import BatchLoader, MixedLoader, Prefetcher
-    from diffusion_e2e_ft_tpu.data.train_datasets import Hypersim, VirtualKITTI2
+    from diffusion_e2e_ft_tpu_torch.data.mixer import BatchLoader, MixedLoader, Prefetcher
+    from diffusion_e2e_ft_tpu_torch.data.train_datasets import Hypersim, VirtualKITTI2
     from diffusion_e2e_ft_tpu_torch.models import UNet2DCondition, convert
     from diffusion_e2e_ft_tpu_torch.pipelines import loading
     from diffusion_e2e_ft_tpu_torch.training import checkpoints as ckpt
@@ -68,7 +68,7 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     if args.modality == "joint":
-        raise NotImplementedError("--modality joint (the GeoWizard trainer) is not ported yet (slice B)")
+        raise NotImplementedError("--modality joint (the GeoWizard trainer) is not ported yet (slice B2)")
     if args.num_devices != 1:
         raise NotImplementedError("data-parallel training (--num_devices > 1) is not ported yet (slice F)")
     random.seed(args.seed)
@@ -107,7 +107,7 @@ def main(argv=None):
         with torch.device("meta"):
             unet = UNet2DCondition(ucfg)
         unet.load_state_dict(state, strict=True, assign=True)
-    empty = loading.compute_empty_text_embed(os.path.join(path, "text_encoder"), pad_to=77)
+    empty = loading.compute_empty_text_embed(os.path.join(path, "text_encoder"), device=args.device, pad_to=77)
 
     # --- data -------------------------------------------------------------
     hyper = Hypersim(args.hypersim_root, split_csv=args.hypersim_split_csv, seed=args.seed)

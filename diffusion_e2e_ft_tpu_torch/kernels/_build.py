@@ -108,6 +108,8 @@ def load_library() -> ctypes.CDLL:
     flash = [i32] * 6 + [f32, ctypes.POINTER(ctypes.c_int64), ptr]  # dtype B N Lq Lk D, scale, strides, stream
     signatures = {
         "e2eft_flash_attention_fwd": [ptr] * 5 + flash,  # q, k, v, o, lse (null: no lse)
+        # q, k, v, o, dtype B N Lq Lk D hp, scale, strides, stream
+        "e2eft_flash_attention_fwd_mh": [ptr] * 4 + [i32] * 7 + flash[6:],
         "e2eft_flash_attention_bwd_dq": [ptr] * 7 + flash,  # q, k, v, dO, lse, delta, dq
         "e2eft_flash_attention_bwd_dkv": [ptr] * 8 + flash,  # q, k, v, dO, lse, delta, dk, dv
         "e2eft_gn_channel_stats": [ptr, ptr, i32, i32, i32, i64, ptr],  # x, out, dtype, B, C, n

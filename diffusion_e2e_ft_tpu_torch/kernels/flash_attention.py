@@ -5,6 +5,9 @@ Kernels (CUDA C++ for sm_90a, see the sources' header notes for their design):
 
 - `flash_attention` launches `csrc/flash_attention.cu`, which replaces the TPU
   kernel `diffusion_e2e_ft_tpu/kernels/flash_attention.py::_flash_kernel`.
+- `flash_attention_mh` launches the same kernel with `hp` heads per block,
+  replacing `::_flash_kernel_mh` (the `E2EFT_FA_HP` option at d < 64);
+  `heads_per_cta` is the selection rule, read at each call.
 - `flash_attention_fwd_lse` launches the same kernel with its LSE flag set,
   replacing `::_flash_kernel_lse`: the output plus the fp32 per-row
   log-sum-exp that the backward needs.
@@ -28,14 +31,23 @@ the same wiring with the plain versions.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from diffusion_e2e_ft_tpu_torch.kernels import _build
 
-# head dims the kernels are instantiated for (UNet d=64, VAE mid-block d=512)
-HEAD_DIMS = (64, 512)
+# Head dims the kernels are instantiated for. The forward: the SD2 UNet (64),
+# the VAE mid block (512) and GeoWizard's SD1.5 UNet (40, 80, 160). The
+# differentiable route (forward+LSE, dq, dk/dv): the trained SD2 models only;
+# the GeoWizard trainer's head dims come with that trainer.
+HEAD_DIMS = (40, 64, 80, 160, 512)
+GRAD_HEAD_DIMS = (64, 512)
+# the heads-per-block forward: narrow heads only, as the JAX picker (d < 64)
+MH_HEAD_DIMS = (40,)
+MH_HEADS = (2, 4, 8)
+MH_TILE = 64  # Q and KV tile rows of the d=40 kernel
 _MAX_GRID_Y = 65535
 
 # Kernel launches since the last `reset_launches()`, one count per kernel;
@@ -43,6 +55,7 @@ _MAX_GRID_Y = 65535
 # to each kernel.
 launches = {
     "flash_attention_fwd": 0,
+    "flash_attention_fwd_mh": 0,
     "flash_attention_fwd_lse": 0,
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
@@ -109,19 +122,19 @@ def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch
         raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    _check_shapes(q, k, v)
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dims=HEAD_DIMS) -> None:
+    _check_shapes(q, k, v, head_dims)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q.dtype, q.device)
 
 
-def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dims=HEAD_DIMS) -> None:
     if q.ndim != 4:
         raise ValueError(f"flash_attention: q must be [B, L, N, D], got {tuple(q.shape)}")
     b, lq, n, d = q.shape
     lk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} is not one of {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"flash_attention: head dim {d} is not one of {head_dims}")
     if k.shape != (b, lk, n, d) or v.shape != k.shape:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree"
@@ -137,7 +150,7 @@ def _strides(*tensors: torch.Tensor):
 
 
 def _forward(q, k, v, scale, with_lse: bool):
-    _check(q, k, v)
+    _check(q, k, v, GRAD_HEAD_DIMS if with_lse else HEAD_DIMS)
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, lq, n), dtype=torch.float32, device=q.device) if with_lse else None
@@ -160,6 +173,35 @@ def flash_attention(
     return _forward(q, k, v, scale, with_lse=False)[0]
 
 
+def heads_per_cta(bn: int, lq: int, lk: int, d: int) -> int:
+    """Heads per block for the forward, from `E2EFT_FA_HP` (default 1), read
+    at each call. As the JAX `_pick_heads_per_program` without its VMEM term:
+    hp > 1 only for narrow heads, when B*N divides by hp and Lq and Lk are each
+    at least one tile; any other value (or an hp the kernel is not built for)
+    gives 1, the one-head kernel."""
+    hp = int(os.environ.get("E2EFT_FA_HP", "1"))
+    if hp not in MH_HEADS or d not in MH_HEAD_DIMS or bn % hp or lq < MH_TILE or lk < MH_TILE:
+        return 1
+    return hp
+
+
+def flash_attention_mh(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float], hp: int
+) -> torch.Tensor:
+    """`flash_attention` with `hp` consecutive (batch, head) pairs per block
+    (d = 40, hp in 2, 4, 8, B*N divisible by hp). CUDA tensors only."""
+    _check(q, k, v, MH_HEAD_DIMS)
+    b, lq, n, d = q.shape
+    if hp not in MH_HEADS or (b * n) % hp:
+        raise ValueError(f"flash_attention_mh: hp={hp} must be one of {MH_HEADS} and divide B*N={b * n}")
+    out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+    _build.launch(
+        launches, "flash_attention_fwd_mh", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, n, lq, k.shape[1], d, hp, _scale(q, scale), _strides(q, k, v, out),
+    )
+    return out
+
+
 def flash_attention_fwd_lse(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,7 +211,7 @@ def flash_attention_fwd_lse(
 
 def _bwd_launch(name, q, k, v, do, lse, delta, scale, outs):
     """Check the backward's operands and launch kernel `name`, which writes `outs`."""
-    _check(q, k, v)
+    _check(q, k, v, GRAD_HEAD_DIMS)
     _check_operand("dO", do, q.dtype, q.device)
     b, lq, n, d = q.shape
     if do.shape != q.shape:

@@ -4,8 +4,9 @@ file reading without the `safetensors` package.
 The conversion is the JAX package's generic rule (`diffusion_e2e_ft_tpu/models/
 convert.py:62-116`) run in reverse: conv kernels HWIO -> OIHW, linear kernels
 IO -> OI, `kernel`/`scale` -> `weight`, list indices `_N` -> `.N`. CLIP text
-towers additionally take the HF `text_model.embeddings.` / `text_model.encoder.`
-nesting (`diffusion_e2e_ft_tpu/pipelines/loading.py::_clip_params_to_state_dict`).
+and vision towers additionally take the HF `<tower>.embeddings.` /
+`<tower>.encoder.` nesting (`diffusion_e2e_ft_tpu/pipelines/loading.py::
+_clip_params_to_state_dict`), with `visual_projection` at the top level.
 Only numpy and the standard library here; `load_weights` returns torch tensors.
 """
 
@@ -119,36 +120,66 @@ def state_dict_to_flax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def clip_text_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """CLIP text-tower param tree -> HF `CLIPTextModel` state dict (numpy)."""
+# CLIP embedding tables and vectors: under `<tower>.embeddings.` in HF keys
+_CLIP_EMBEDDINGS = ("token_embedding", "position_embedding", "class_embedding", "patch_embedding")
+
+
+def _clip_params_to_state_dict(params: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for path, value in _walk(params):
         if path[-1] == "embedding":  # nn.Embed table: no transpose, leaf `weight`
-            out[f"text_model.embeddings.{path[0]}.weight"] = value
-            continue
-        key = _flax_path_to_key(path)
-        value = np.ascontiguousarray(_to_torch_value(path[-1], value))
-        if key.startswith("layers."):
-            out["text_model.encoder." + key] = value
+            key = f"{path[0]}.weight"
         else:
-            out["text_model." + key] = value
+            key = _flax_path_to_key(path)
+            value = np.ascontiguousarray(_to_torch_value(path[-1], value))
+        if path[0] == "visual_projection":
+            out[key] = value
+        elif path[0] in _CLIP_EMBEDDINGS:
+            out[f"{prefix}.embeddings.{key}"] = value
+        elif key.startswith("layers."):
+            out[f"{prefix}.encoder.{key}"] = value
+        else:
+            out[f"{prefix}.{key}"] = value
     return out
 
 
-def clip_text_state_dict_to_flax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
-    """Inverse of `clip_text_params_to_state_dict` (ignores `position_ids`)."""
+def _clip_state_dict_to_flax_params(state_dict: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
         value = np.asarray(value)
         if "position_ids" in key:
             continue
-        key = key.replace("text_model.", "").replace("embeddings.", "").replace("encoder.", "")
+        key = key.replace(f"{prefix}.", "").replace("embeddings.", "").replace("encoder.", "")
         if key.endswith(("token_embedding.weight", "position_embedding.weight")):
             _set_path(tree, (key.split(".")[0], "embedding"), value)
-            continue
-        path = _key_to_flax_path(key, value.ndim)
-        _set_path(tree, path, _to_flax_value(path[-1], value))
+        elif key == "class_embedding":
+            _set_path(tree, (key,), value)
+        else:
+            path = _key_to_flax_path(key, value.ndim)
+            _set_path(tree, path, _to_flax_value(path[-1], value))
     return tree
+
+
+def clip_text_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """CLIP text-tower param tree -> HF `CLIPTextModel` state dict (numpy)."""
+    return _clip_params_to_state_dict(params, "text_model")
+
+
+def clip_text_state_dict_to_flax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of `clip_text_params_to_state_dict` (ignores `position_ids`)."""
+    return _clip_state_dict_to_flax_params(state_dict, "text_model")
+
+
+def clip_vision_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """CLIP vision-tower param tree -> HF `CLIPVisionModelWithProjection` state
+    dict (numpy): the key layout of the JAX package's vision export
+    (`diffusion_e2e_ft_tpu/pipelines/loading.py::_clip_params_to_state_dict`)."""
+    return _clip_params_to_state_dict(params, "vision_model")
+
+
+def clip_vision_state_dict_to_flax_params(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of `clip_vision_params_to_state_dict` (ignores `position_ids`)."""
+    return _clip_state_dict_to_flax_params(state_dict, "vision_model")
 
 
 def replace_conv_in(state_dict: Mapping[str, torch.Tensor], repeat: int = 2) -> Dict[str, torch.Tensor]:

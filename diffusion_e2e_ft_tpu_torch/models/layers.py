@@ -1,4 +1,4 @@
-"""Shared building blocks for the SD2 models (NCHW, torch.nn).
+"""Shared building blocks for the SD2 and SD1.5-family models (NCHW, torch.nn).
 
 Parameter names are the HF/diffusers keys, so a published state dict loads
 with `load_state_dict(strict=True)`. Norms compute in fp32 and cast back to
@@ -7,6 +7,7 @@ the module's dtype, as in the JAX package (`diffusion_e2e_ft_tpu/models/layers.p
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -146,7 +147,9 @@ class Upsample(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; self-attention when context is None."""
+    """Multi-head attention; self-attention when context is None. `joint=True`
+    runs GeoWizard's cross-task self-attention (keys and values unioned across
+    the two task halves of the batch)."""
 
     def __init__(
         self,
@@ -155,10 +158,11 @@ class CrossAttention(nn.Module):
         head_dim: int,
         context_dim: Optional[int] = None,
         out_bias: bool = True,
+        joint: bool = False,
     ):
         super().__init__()
         inner = num_heads * head_dim
-        self.num_heads, self.head_dim = num_heads, head_dim
+        self.num_heads, self.head_dim, self.joint = num_heads, head_dim, joint
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
@@ -171,7 +175,10 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, lq, self.num_heads, self.head_dim)
         k = self.to_k(ctx).view(b, lk, self.num_heads, self.head_dim)
         v = self.to_v(ctx).view(b, lk, self.num_heads, self.head_dim)
-        out = kernels.attention(q, k, v)
+        if self.joint and context is None:
+            out = kernels.joint_attention(q, k, v)
+        else:
+            out = kernels.attention(q, k, v)
         return self.to_out[0](out.reshape(b, lq, self.num_heads * self.head_dim))
 
 
@@ -204,10 +211,10 @@ def _layer_norm_fp32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 class TransformerBlock(nn.Module):
     """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int, joint_attention: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = CrossAttention(dim, num_heads, head_dim)
+        self.attn1 = CrossAttention(dim, num_heads, head_dim, joint=joint_attention)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = CrossAttention(dim, num_heads, head_dim, context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
@@ -220,10 +227,11 @@ class TransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GN -> linear proj_in -> transformer blocks -> linear proj_out, residual.
+    """GN -> proj_in -> transformer blocks -> proj_out, residual.
 
-    SD2 uses linear projections (`use_linear_projection=True`); the 1x1-conv
-    projections of SD1.5-family models are not ported yet."""
+    SD2 uses linear projections (`use_linear_projection=True`); the SD1.5
+    family (GeoWizard) uses 1x1 convs, whose HF keys hold [out, in, 1, 1]
+    weights. Both compute the same per-pixel affine map."""
 
     def __init__(
         self,
@@ -233,24 +241,31 @@ class SpatialTransformer(nn.Module):
         context_dim: int,
         depth: int = 1,
         groups: int = 32,
+        use_linear_projection: bool = True,
+        joint_attention: bool = False,
     ):
         super().__init__()
         inner = num_heads * head_dim
         self.norm = GroupNormAct(groups, channels, eps=1e-6, silu=False)
-        self.proj_in = nn.Linear(channels, inner)
+        proj = nn.Linear if use_linear_projection else functools.partial(nn.Conv2d, kernel_size=1)
+        self.proj_in = proj(channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            [TransformerBlock(inner, num_heads, head_dim, context_dim) for _ in range(depth)]
+            [TransformerBlock(inner, num_heads, head_dim, context_dim, joint_attention) for _ in range(depth)]
         )
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = proj(inner, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         hidden = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        hidden = self.proj_in(hidden)
+        hidden = _project(self.proj_in, hidden)
         for block in self.transformer_blocks:
             hidden = block(hidden, context)
-        hidden = self.proj_out(hidden).reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return hidden + x
+        return _project(self.proj_out, hidden).reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+
+
+def _project(proj: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """A linear layer or a 1x1 conv ([out, in] or [out, in, 1, 1] weight) on [B, L, in] tokens."""
+    return F.linear(tokens, proj.weight.flatten(1), proj.bias)
 
 
 class VAEAttention(nn.Module):

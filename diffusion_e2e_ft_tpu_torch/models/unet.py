@@ -1,15 +1,17 @@
 """SD2-family conditional UNet (NCHW), port of `diffusion_e2e_ft_tpu/models/unet.py`.
 
-Covers the Marigold / E2E-FT configuration: 8-channel input (image latent ++
-noisy latent), cross-attention over the CLIP empty-prompt embedding, linear
-transformer projections. The GeoWizard class embedding and joint attention
-are not ported yet.
+Covers the Marigold / E2E-FT configuration (8-channel input: image latent ++
+noisy latent, cross-attention over the CLIP empty-prompt embedding, linear
+transformer projections) and GeoWizard's (`UNetConfig.geowizard()`): the
+SD1.5 shape (8 heads per level, cross-attention dim 768, 1x1-conv
+projections), a projection class embedding of the 10-dim task / domain
+switcher added to the time embedding, and joint cross-task self-attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,8 +39,12 @@ class UNetConfig:
     transformer_depth: int = 1
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
+    use_linear_projection: bool = True
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # GeoWizard extensions
+    class_embed_proj_dim: Optional[int] = None  # 10 for GeoWizard's switcher
+    joint_attention: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -47,6 +53,18 @@ class UNetConfig:
     @staticmethod
     def sd2(**kw) -> "UNetConfig":
         return UNetConfig(**kw)
+
+    @staticmethod
+    def sd15(**kw) -> "UNetConfig":
+        base = dict(num_attention_heads=(8, 8, 8, 8), cross_attention_dim=768, use_linear_projection=False)
+        base.update(kw)
+        return UNetConfig(**base)
+
+    @staticmethod
+    def geowizard(**kw) -> "UNetConfig":
+        base = dict(class_embed_proj_dim=10, joint_attention=True)
+        base.update(kw)
+        return UNetConfig.sd15(**base)
 
     @staticmethod
     def tiny(**kw) -> "UNetConfig":
@@ -64,6 +82,7 @@ def _transformer(c: UNetConfig, channels: int, heads: int) -> SpatialTransformer
     return SpatialTransformer(
         channels, heads, channels // heads, c.cross_attention_dim,
         depth=c.transformer_depth, groups=c.norm_num_groups,
+        use_linear_projection=c.use_linear_projection, joint_attention=c.joint_attention,
     )
 
 
@@ -140,13 +159,17 @@ class _UpBlock(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    """(latent [B,C,H,W], timestep, context [B,L,D]) -> prediction [B,4,H,W]."""
+    """(latent [B,C,H,W], timestep, context [B,L,D][, class vector [B,P]]) ->
+    prediction [B,4,H,W]."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
         c = self.config = config
         ch = c.block_out_channels
         self.time_embedding = TimestepEmbedding(ch[0], c.time_embed_dim)
+        self.class_embedding = (
+            TimestepEmbedding(c.class_embed_proj_dim, c.time_embed_dim) if c.class_embed_proj_dim is not None else None
+        )
         self.conv_in = nn.Conv2d(c.in_channels, ch[0], 3, padding=1)
 
         # follow the skip tensors' channels exactly as forward() stacks them
@@ -169,7 +192,11 @@ class UNet2DCondition(nn.Module):
         self.conv_out = nn.Conv2d(ch[0], c.out_channels, 3, padding=1)
 
     def forward(
-        self, sample: torch.Tensor, timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor
+        self,
+        sample: torch.Tensor,
+        timesteps: torch.Tensor,
+        encoder_hidden_states: torch.Tensor,
+        class_labels: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         c = self.config
         dtype = self.conv_in.weight.dtype
@@ -181,6 +208,10 @@ class UNet2DCondition(nn.Module):
             flip_sin_to_cos=c.flip_sin_to_cos, downscale_freq_shift=c.freq_shift,
         ).to(dtype)
         temb = self.time_embedding(t_feat)
+        if self.class_embedding is not None:
+            if class_labels is None:
+                raise ValueError("this UNet config requires class_labels")
+            temb = temb + self.class_embedding(class_labels.to(dtype))
         context = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype))
 

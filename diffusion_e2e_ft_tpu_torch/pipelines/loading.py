@@ -1,10 +1,12 @@
-"""HF (diffusers-layout) pipeline directories, port of the Marigold part of
-`diffusion_e2e_ft_tpu/pipelines/loading.py`.
+"""HF (diffusers-layout) pipeline directories, port of the Marigold and
+GeoWizard parts of `diffusion_e2e_ft_tpu/pipelines/loading.py`.
 
-Loading reads `unet/`, `vae/`, `scheduler/` and `text_encoder/` subfolders;
-weights load with `load_state_dict(strict=True)`, so a missing or extra key
-fails. The empty-prompt text embedding is computed once at load time and the
-text tower is dropped afterwards.
+Loading reads `unet/`, `vae/`, `scheduler/` and `text_encoder/` (Marigold) or
+`image_encoder/` (GeoWizard) subfolders; weights load with
+`load_state_dict(strict=True)`, so a missing or extra key fails. The
+empty-prompt text embedding is computed once at load time and the text tower
+is dropped afterwards. Entry points put the models on `cuda` unless given
+another device.
 
 `save_pipeline_dir` writes the same layout (torch `.bin` weights, which both
 packages read), so an export from either package loads in both.
@@ -12,6 +14,7 @@ packages read), so an export from either package loads in both.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -48,10 +51,8 @@ def _find_weights(subdir: str) -> str:
 
 
 def unet_config_from_hf(cfg: Dict[str, Any]) -> UNetConfig:
-    if cfg.get("class_embed_type") is not None:
-        raise NotImplementedError("class-embedding UNets (GeoWizard) are not ported yet (slice B)")
-    if not cfg.get("use_linear_projection", False):
-        raise NotImplementedError("1x1-conv transformer projections (SD1.5 family) are not ported yet (slice B)")
+    """The UNet config of an HF `config.json`. GeoWizard's joint attention is a
+    runtime flag, not an HF field: `load_geowizard_pipeline` sets it."""
     down_types = cfg.get("down_block_types", ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"])
     heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", 8)
     if isinstance(heads, int):
@@ -68,8 +69,12 @@ def unet_config_from_hf(cfg: Dict[str, Any]) -> UNetConfig:
         transformer_depth=depth if isinstance(depth, int) else 1,
         norm_num_groups=cfg.get("norm_num_groups", 32),
         norm_eps=cfg.get("norm_eps", 1e-5),
+        use_linear_projection=cfg.get("use_linear_projection", False),
         flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
         freq_shift=cfg.get("freq_shift", 0),
+        class_embed_proj_dim=cfg.get("projection_class_embeddings_input_dim")
+        if cfg.get("class_embed_type") == "projection"
+        else None,
     )
 
 
@@ -102,7 +107,7 @@ def scheduler_config_from_hf(cfg: Dict[str, Any]) -> sched_ops.SchedulerConfig:
 
 
 def unet_config_to_hf(c: UNetConfig) -> Dict[str, Any]:
-    return {
+    out = {
         "_class_name": "UNet2DConditionModel",
         "in_channels": c.in_channels,
         "out_channels": c.out_channels,
@@ -115,7 +120,7 @@ def unet_config_to_hf(c: UNetConfig) -> Dict[str, Any]:
         "transformer_layers_per_block": c.transformer_depth,
         "norm_num_groups": c.norm_num_groups,
         "norm_eps": c.norm_eps,
-        "use_linear_projection": True,
+        "use_linear_projection": c.use_linear_projection,
         "flip_sin_to_cos": c.flip_sin_to_cos,
         "freq_shift": c.freq_shift,
         "act_fn": "silu",
@@ -123,6 +128,10 @@ def unet_config_to_hf(c: UNetConfig) -> Dict[str, Any]:
         "downsample_padding": 1,
         "mid_block_scale_factor": 1,
     }
+    if c.class_embed_proj_dim is not None:
+        out["class_embed_type"] = "projection"
+        out["projection_class_embeddings_input_dim"] = c.class_embed_proj_dim
+    return out
 
 
 def vae_config_to_hf(c: VAEConfig) -> Dict[str, Any]:
@@ -173,6 +182,36 @@ def text_config_from_hf(cfg: Dict[str, Any]) -> clip_models.CLIPTextConfig:
     )
 
 
+def vision_config_from_hf(cfg: Dict[str, Any]) -> clip_models.CLIPVisionConfig:
+    return clip_models.CLIPVisionConfig(
+        hidden_size=cfg.get("hidden_size", 1024),
+        num_layers=cfg.get("num_hidden_layers", 24),
+        num_heads=cfg.get("num_attention_heads", 16),
+        intermediate_size=cfg.get("intermediate_size", 4096),
+        image_size=cfg.get("image_size", 224),
+        patch_size=cfg.get("patch_size", 14),
+        projection_dim=cfg.get("projection_dim", 768),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+    )
+
+
+def vision_config_to_hf(c: clip_models.CLIPVisionConfig) -> Dict[str, Any]:
+    return {
+        "architectures": ["CLIPVisionModelWithProjection"],
+        "model_type": "clip_vision_model",
+        "hidden_size": c.hidden_size,
+        "num_hidden_layers": c.num_layers,
+        "num_attention_heads": c.num_heads,
+        "intermediate_size": c.intermediate_size,
+        "image_size": c.image_size,
+        "patch_size": c.patch_size,
+        "projection_dim": c.projection_dim,
+        "hidden_act": c.hidden_act,
+        "layer_norm_eps": c.layer_norm_eps,
+    }
+
+
 def _load_module(module_cls, config, weights_path: str) -> torch.nn.Module:
     """Build on the meta device and take the file's tensors as parameters."""
     state = convert.canonicalize_keys(convert.load_weights(weights_path))
@@ -193,8 +232,13 @@ def load_vae(path: str) -> AutoencoderKL:
     return _load_module(AutoencoderKL, cfg, _find_weights(path))
 
 
+def load_image_encoder(path: str) -> clip_models.CLIPVisionModelWithProjection:
+    cfg = vision_config_from_hf(_read_json(os.path.join(path, "config.json")))
+    return _load_module(clip_models.CLIPVisionModelWithProjection, cfg, _find_weights(path))
+
+
 @torch.inference_mode()
-def compute_empty_text_embed(text_encoder_dir: str, device="cpu", pad_to: Optional[int] = None) -> np.ndarray:
+def compute_empty_text_embed(text_encoder_dir: str, device="cuda", pad_to: Optional[int] = None) -> np.ndarray:
     """Run the checkpoint's text tower on the empty prompt once (EOS-padded to
     `pad_to` tokens if given); return [1, L, D] fp32."""
     cfg = text_config_from_hf(_read_json(os.path.join(text_encoder_dir, "config.json")))
@@ -205,7 +249,7 @@ def compute_empty_text_embed(text_encoder_dir: str, device="cpu", pad_to: Option
 
 
 def load_marigold_pipeline(
-    path: str, device="cpu", dtype: torch.dtype = torch.float32, allow_missing_text_encoder: bool = False
+    path: str, device="cuda", dtype: torch.dtype = torch.float32, allow_missing_text_encoder: bool = False
 ):
     """Assemble a MarigoldPipeline from an HF pipeline directory.
 
@@ -240,9 +284,26 @@ def load_marigold_pipeline(
     )
 
 
+def load_geowizard_pipeline(path: str, device="cuda", dtype: torch.dtype = torch.float32):
+    """Assemble a GeoWizardPipeline from an HF pipeline directory with an
+    `image_encoder/` (CLIP vision tower + projection). A UNet with a class
+    embedding runs joint attention, as the JAX loader sets it."""
+    from diffusion_e2e_ft_tpu_torch.pipelines.geowizard import GeoWizardPipeline
+
+    unet_dir = os.path.join(path, "unet")
+    ucfg = unet_config_from_hf(_read_json(os.path.join(unet_dir, "config.json")))
+    ucfg = dataclasses.replace(ucfg, joint_attention=ucfg.class_embed_proj_dim is not None)
+    unet = _load_module(UNet2DCondition, ucfg, _find_weights(unet_dir))
+    vae = load_vae(os.path.join(path, "vae"))
+    encoder = load_image_encoder(os.path.join(path, "image_encoder"))
+    sched = scheduler_config_from_hf(_read_json(os.path.join(path, "scheduler", "scheduler_config.json")))
+    return GeoWizardPipeline(unet, vae, encoder, sched, device=device, dtype=dtype)
+
+
 _MODEL_INDEX_CLASSES = {
     "text_encoder": ["transformers", "CLIPTextModel"],
     "tokenizer": ["transformers", "CLIPTokenizer"],
+    "image_encoder": ["transformers", "CLIPVisionModelWithProjection"],
     "feature_extractor": ["transformers", "CLIPImageProcessor"],
 }
 
@@ -260,18 +321,25 @@ def save_pipeline_dir(
     scheduler_config: sched_ops.SchedulerConfig,
     scheduler_class: str = "DDIMScheduler",
     copy_subfolders: Optional[Dict[str, str]] = None,
+    image_encoder_config: Optional[clip_models.CLIPVisionConfig] = None,
+    image_encoder_state: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> None:
-    """Write an HF-layout Marigold pipeline directory: model_index.json, unet/
-    and vae/ (config.json + fp32 `diffusion_pytorch_model.bin`), scheduler/,
-    and each of `copy_subfolders` (name -> source directory) copied verbatim."""
+    """Write an HF-layout pipeline directory: model_index.json, unet/ and vae/
+    (config.json + fp32 `diffusion_pytorch_model.bin`), scheduler/, with an
+    image encoder an `image_encoder/` (config.json + fp32 `pytorch_model.bin`;
+    a GeoWizard pipeline), and each of `copy_subfolders` (name -> source
+    directory) copied verbatim."""
     os.makedirs(path, exist_ok=True)
+    with_encoder = image_encoder_config is not None and image_encoder_state is not None
     index = {
-        "_class_name": "MarigoldPipeline",
+        "_class_name": "GeoWizardPipeline" if with_encoder else "MarigoldPipeline",
         "unet": ["diffusers", "UNet2DConditionModel"],
         "vae": ["diffusers", "AutoencoderKL"],
         "scheduler": ["diffusers", scheduler_class],
     }
     index.update({sub: _MODEL_INDEX_CLASSES[sub] for sub in copy_subfolders or () if sub in _MODEL_INDEX_CLASSES})
+    if with_encoder:
+        index["image_encoder"] = _MODEL_INDEX_CLASSES["image_encoder"]
     with open(os.path.join(path, "model_index.json"), "w") as f:
         json.dump(index, f, indent=2)
     for sub, cfg, state in (
@@ -282,6 +350,11 @@ def save_pipeline_dir(
         with open(os.path.join(path, sub, "config.json"), "w") as f:
             json.dump(cfg, f, indent=2)
         _save_weights(state, os.path.join(path, sub, "diffusion_pytorch_model.bin"))
+    if with_encoder:
+        os.makedirs(os.path.join(path, "image_encoder"), exist_ok=True)
+        with open(os.path.join(path, "image_encoder", "config.json"), "w") as f:
+            json.dump(vision_config_to_hf(image_encoder_config), f, indent=2)
+        _save_weights(image_encoder_state, os.path.join(path, "image_encoder", "pytorch_model.bin"))
     os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
     with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump(scheduler_config_to_hf(scheduler_config, scheduler_class), f, indent=2)

@@ -36,10 +36,13 @@ class MarigoldOutput:
 
 def init_random_(module: torch.nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights in the flax default scheme: lecun-normal kernels,
-    zero biases, unit norm scales, N(0, 0.02) embedding tables."""
+    zero biases, unit norm scales, N(0, 0.02) embedding tables and CLIP class
+    embeddings."""
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if p.ndim >= 2 and isinstance(_owner(module, name), torch.nn.Embedding):
+            if (p.ndim >= 2 and isinstance(_owner(module, name), torch.nn.Embedding)) or name.endswith(
+                ".class_embedding"
+            ):
                 p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
             elif p.ndim >= 2:
                 fan_in = p[0].numel()
@@ -58,7 +61,8 @@ class MarigoldPipeline:
     """Depth/normal prediction from an E2E-FT (or diffusion) SD2-family checkpoint.
 
     Construct via `from_hf_dir` (published checkpoints) or `from_random`.
-    Parameters are cast to `dtype` (bf16 or fp32) and moved to `device`."""
+    Parameters are cast to `dtype` (bf16 or fp32) and moved to `device`, the
+    card unless the caller asks for another."""
 
     latent_scale_factor = 0.18215
 
@@ -69,7 +73,7 @@ class MarigoldPipeline:
         scheduler_config: sched_ops.SchedulerConfig,
         empty_text_embed,  # [1, L, cross_attention_dim]
         *,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float32,
         scheduler_type: str = "ddim",
     ):
@@ -87,7 +91,7 @@ class MarigoldPipeline:
         self.empty_text_embed = torch.as_tensor(np.asarray(empty_text_embed)).to(self.device, dtype)
 
     @classmethod
-    def from_hf_dir(cls, path: str, device="cpu", dtype=torch.float32, **kw) -> "MarigoldPipeline":
+    def from_hf_dir(cls, path: str, device="cuda", dtype=torch.float32, **kw) -> "MarigoldPipeline":
         from diffusion_e2e_ft_tpu_torch.pipelines import loading
 
         return loading.load_marigold_pipeline(path, device=device, dtype=dtype, **kw)
@@ -99,7 +103,7 @@ class MarigoldPipeline:
         vae_config: Optional[VAEConfig] = None,
         scheduler_config: Optional[sched_ops.SchedulerConfig] = None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float32,
     ) -> "MarigoldPipeline":
         """Random-weight pipeline (tiny by default). Weights are drawn on the CPU

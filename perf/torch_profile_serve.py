@@ -1,15 +1,17 @@
 """Where the time goes in a bf16 serving request of the PyTorch port, on one GPU.
 
-    python3 perf/torch_profile_serve.py [--out chiprun_out/torch_profile.txt]
+    python3 perf/torch_profile_serve.py [--model marigold|geowizard] [--out <per-op tables file>]
 
-A full-width SD2 Marigold pipeline (`UNetConfig.sd2()`, `VAEConfig()`) with
-seeded random weights runs in bf16 on `cuda:0`. For 768x768 and then 576x768
-(the reference's resolution) it prints:
+A full-width pipeline with seeded random weights runs in bf16 on `cuda:0`:
+SD2 Marigold (`UNetConfig.sd2()`, `VAEConfig()`) or GeoWizard
+(`UNetConfig.geowizard()`, `VAEConfig()`, the ViT-L/14 image tower; joint
+depth + normals, batch 2 in the UNet and the decode). For 768x768 and then
+576x768 (the reference's resolution) it prints:
 
-- the first depth request at that shape (host clock, synchronized), then the
+- the first request at that shape (host clock, synchronized), then the
   median of three warm ones;
-- the device body's stage split, VAE encode / UNet / VAE decode, from CUDA
-  events around each stage, median of 5;
+- the device body's stage split, VAE encode / (GeoWizard: image tower) /
+  UNet / VAE decode, from CUDA events around each stage, median of 5;
 - over 3 warm `MarigoldPipeline.__call__` requests under
   torch.profiler: host wall time, summed kernel time, the idle share
   1 - kernel time / wall, and kernel time grouped by kind.
@@ -33,7 +35,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
-from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+from diffusion_e2e_ft_tpu_torch.models import clip
+from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline, MarigoldPipeline
+from diffusion_e2e_ft_tpu_torch.pipelines.geowizard import domain_one_hot, switcher_embedding
 
 RESOLUTIONS = ((768, 768), (576, 768))  # in order: the second shows the first request at a new shape
 REQUESTS = 3  # warm requests under the profiler
@@ -68,28 +72,38 @@ def synced_ms(fn) -> float:
 
 
 @torch.inference_mode()
-def stage_split(pipe: MarigoldPipeline, img: np.ndarray, reps: int = 5) -> list:
-    """Median encode / UNet / decode device ms of the one-step device body."""
+def stage_split(pipe, img: np.ndarray, reps: int = 5) -> dict:
+    """Median device ms of each stage of the one-step device body."""
     rgb = torch.from_numpy(img.astype(np.float32)).cuda()[None] / 127.5 - 1.0
+    geowizard = isinstance(pipe, GeoWizardPipeline)
+    names = ("encode", "image tower", "UNet", "decode") if geowizard else ("encode", "UNet", "decode")
     times = []
     for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         x = rgb.to(pipe.dtype).permute(0, 3, 1, 2)
         ev[0].record()
         lat = pipe.vae.encode_mean(x) * pipe.latent_scale_factor
         ev[1].record()
-        context = pipe.empty_text_embed.expand(1, -1, -1)
-        out = pipe.unet(torch.cat([lat, torch.zeros_like(lat)], dim=1), 999, context)
-        ev[2].record()
+        if geowizard:  # the task pair: batch 2 through the UNet and the decode
+            embed = pipe.image_encoder(clip.clip_preprocess((rgb + 1.0) / 2.0))[:, None].to(pipe.dtype)
+            ev[2].record()
+            lat, context = torch.cat([lat, lat]), torch.cat([embed, embed])
+            labels = switcher_embedding(domain_one_hot("indoor")).cuda()
+            out = pipe.unet(torch.cat([lat, torch.zeros_like(lat)], dim=1), 999, context, labels)
+        else:
+            context = pipe.empty_text_embed.expand(1, -1, -1)
+            out = pipe.unet(torch.cat([lat, torch.zeros_like(lat)], dim=1), 999, context)
+        ev[-2].record()
         pipe.vae.decode(out / pipe.latent_scale_factor)
-        ev[3].record()
+        ev[-1].record()
         torch.cuda.synchronize()
-        times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-    return [statistics.median(col) for col in zip(*times)]
+        times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
+    return {name: statistics.median(col) for name, col in zip(names, zip(*times))}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("marigold", "geowizard"), default="marigold")
     ap.add_argument("--out", default="chiprun_out/torch_profile.txt", help="per-op tables")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -98,8 +112,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    pipe = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=0, device="cuda",
-                                        dtype=torch.bfloat16)
+    if args.model == "geowizard":
+        pipe = GeoWizardPipeline.from_random(UNetConfig.geowizard(), VAEConfig(), clip.CLIPVisionConfig(), seed=0,
+                                             device="cuda", dtype=torch.bfloat16)
+    else:
+        pipe = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=0, device="cuda",
+                                            dtype=torch.bfloat16)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as tables:
         for hw in RESOLUTIONS:
@@ -112,9 +130,9 @@ def main() -> int:
             first = synced_ms(request)
             warm = statistics.median(synced_ms(request) for _ in range(3))
             print(f"[{res}] first request {first:.2f} ms, warm median of 3 {warm:.2f} ms", flush=True)
-            enc, unet, dec = stage_split(pipe, img)
-            print(f"[{res}] device body, CUDA events, median of 5: encode {enc:.2f} ms, "
-                  f"UNet {unet:.2f} ms, decode {dec:.2f} ms", flush=True)
+            stages = stage_split(pipe, img)
+            print(f"[{res}] device body, CUDA events, median of 5: "
+                  + ", ".join(f"{name} {ms:.2f} ms" for name, ms in stages.items()), flush=True)
 
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -49,3 +49,44 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return np.moveaxis(t.detach().numpy(), 1, -1)
+
+
+def read_key_inventory(name: str) -> dict:
+    """{HF key: shape} of a frozen inventory under tests/fixtures/hf_keys/."""
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "hf_keys", f"{name}.txt")
+    out = {}
+    for line in open(path):
+        key, shape = line.split()
+        out[key] = tuple(int(s) for s in shape.split(","))
+    return out
+
+
+def geowizard_flax_params(unet_config, vae_config, vision_config, seed: int) -> dict:
+    """JAX GeoWizard param trees (UNet, VAE, CLIP vision tower) from one seed."""
+    import jax.numpy as jnp
+
+    from diffusion_e2e_ft_tpu.models import AutoencoderKL, UNet2DCondition
+    from diffusion_e2e_ft_tpu.models import clip
+
+    u, s = unet_config, vision_config.image_size
+    return {
+        "unet": random_flax_params(
+            UNet2DCondition(u), seed, jnp.ones((2, 8, 8, u.in_channels)), jnp.asarray(999),
+            jnp.ones((2, 1, u.cross_attention_dim)), jnp.ones((2, u.class_embed_proj_dim)),
+        ),
+        "vae": random_flax_params(AutoencoderKL(vae_config), seed + 1, jnp.ones((1, 32, 32, 3))),
+        "image_encoder": random_flax_params(
+            clip.CLIPVisionModelWithProjection(vision_config), seed + 2, jnp.ones((1, s, s, 3))
+        ),
+    }
+
+
+def load_geowizard_into(unet, vae, image_encoder, params: dict):
+    """Load `geowizard_flax_params` into port modules through the port's converters."""
+    load_into(unet, params["unet"])
+    load_into(vae, params["vae"])
+    sd = tconvert.clip_vision_params_to_state_dict(params["image_encoder"])
+    image_encoder.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    return unet, vae, image_encoder.eval()

@@ -65,8 +65,8 @@ def test_wrapper_refuses_cpu_tensor():
 
 
 def test_wrapper_refuses_unsupported_head_dim():
-    q = torch.zeros(1, 256, 1, 40)
-    with pytest.raises(ValueError, match="head dim 40"):
+    q = torch.zeros(1, 256, 1, 96)
+    with pytest.raises(ValueError, match="head dim 96"):
         tfa.flash_attention(q, q, q)
 
 

@@ -1,8 +1,12 @@
 """The torch port imports without JAX: every module loads in a process where
-`jax`, `jaxlib`, `flax`, `optax` and `orbax` cannot be imported. A subprocess,
-because this test process already imported jax (tests/conftest.py)."""
+`jax`, `jaxlib`, `flax`, `optax` and `orbax` cannot be imported (a subprocess,
+because this test process already imported jax, tests/conftest.py), and no
+source of the port or `chip_smoke.py` imports the JAX package, not even
+inside a function."""
 
+import ast
 import os
+import pathlib
 import pkgutil
 import subprocess
 import sys
@@ -30,6 +34,9 @@ def test_port_modules_listed():
         "diffusion_e2e_ft_tpu_torch.pipelines.loading",
         "diffusion_e2e_ft_tpu_torch.cli.serve",
         "diffusion_e2e_ft_tpu_torch.cli.train",
+        "diffusion_e2e_ft_tpu_torch.data.mixer",
+        "diffusion_e2e_ft_tpu_torch.data.train_datasets",
+        "diffusion_e2e_ft_tpu_torch.pipelines.geowizard",
         "diffusion_e2e_ft_tpu_torch.ops.losses",
         "diffusion_e2e_ft_tpu_torch.training.checkpoints",
         "diffusion_e2e_ft_tpu_torch.training.config",
@@ -62,14 +69,14 @@ def test_imports_with_jax_blocked():
 
 
 def test_train_cli_data_readers_import_without_jax():
-    """`cli.train` reuses the JAX package's host-side data readers and mixer;
-    they (and the CLI's parser) load with JAX blocked too."""
+    """`cli.train`'s data readers and mixer are the port's own copies; they
+    (and the CLI's parser) load with JAX blocked too."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
         "    sys.modules[name] = None\n"
-        "from diffusion_e2e_ft_tpu.data.mixer import BatchLoader, MixedLoader, Prefetcher\n"
-        "from diffusion_e2e_ft_tpu.data.train_datasets import Hypersim, VirtualKITTI2\n"
+        "from diffusion_e2e_ft_tpu_torch.data.mixer import BatchLoader, MixedLoader, Prefetcher\n"
+        "from diffusion_e2e_ft_tpu_torch.data.train_datasets import Hypersim, VirtualKITTI2\n"
         "from diffusion_e2e_ft_tpu_torch.cli.train import build_parser\n"
         "build_parser().parse_args(['--pretrained_model_name_or_path', 'x'])\n"
         "print('ok')\n"
@@ -79,3 +86,40 @@ def test_train_cli_data_readers_import_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def _jax_package_imports(path: pathlib.Path) -> list:
+    """Every `import diffusion_e2e_ft_tpu...` / `from diffusion_e2e_ft_tpu... import`
+    in a source, at any depth, as (line, module)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names if n.split(".")[0] == "diffusion_e2e_ft_tpu"]
+    return found
+
+
+def test_no_source_imports_the_jax_package():
+    root = pathlib.Path(REPO)
+    sources = sorted((root / "diffusion_e2e_ft_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(sources) > 30
+    offending = {str(p.relative_to(root)): hits for p in sources if (hits := _jax_package_imports(p))}
+    assert offending == {}
+
+
+def test_import_scan_sees_nested_imports(tmp_path):
+    """The scan finds the JAX package's imports inside functions, and only those."""
+    src = tmp_path / "probe.py"
+    src.write_text(
+        "import diffusion_e2e_ft_tpu_torch\n"
+        "from diffusion_e2e_ft_tpu_torch.kernels import attention\n"
+        "def main():\n"
+        "    from diffusion_e2e_ft_tpu.data.mixer import BatchLoader\n"
+        "    import diffusion_e2e_ft_tpu.ops.image as im\n"
+        "    from . import sibling\n"
+    )
+    assert _jax_package_imports(src) == [(4, "diffusion_e2e_ft_tpu.data.mixer"), (5, "diffusion_e2e_ft_tpu.ops.image")]

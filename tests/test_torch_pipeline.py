@@ -95,6 +95,23 @@ def test_unported_options_raise(pipes, image):
         tp(image, noise="gaussian", processing_res=64)
 
 
+@pytest.mark.parametrize("entry", ["load_marigold_pipeline", "MarigoldPipeline.from_hf_dir", "compute_empty_text_embed"])
+def test_entry_points_default_to_cuda(checkpoint, entry):
+    """Without `device`, the loaders put the models on the card: on this
+    machine, which has none, they raise instead of running on the CPU."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    calls = {
+        "load_marigold_pipeline": lambda: tloading.load_marigold_pipeline(checkpoint),
+        "MarigoldPipeline.from_hf_dir": lambda: MarigoldPipeline.from_hf_dir(checkpoint),
+        "compute_empty_text_embed": lambda: tloading.compute_empty_text_embed(f"{checkpoint}/text_encoder"),
+    }
+    if torch.cuda.is_available():
+        pytest.skip("with a card the default device is that card; this checks the refusal without one")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        calls[entry]()
+
+
 def test_http_server_answers(pipes):
     from PIL import Image
 
