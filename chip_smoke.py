@@ -9,8 +9,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. the flash-attention forward kernel against its plain PyTorch version on
    the card, fp32 and bf16, at the serving path's attention shapes (768x768
    and 576x768, whose 432-token level is ragged for the kernel's tiles) and
-   ragged ones: max |delta| / max |plain| against the plain version in fp32,
-   and both times (CUDA events);
+   ragged ones (257 keys: one valid column in the last KV tile; 256: whole
+   tiles; Lq ragged against the 128-row Q tile): max |delta| / max |plain|
+   against the plain version in fp32, and, in bf16, the kernel's time beside
+   the plain version's and `scaled_dot_product_attention`'s (CUDA events);
+   then q, k, v as strided views of one projection and Lq != Lk;
 4. the backward kernels (forward+LSE, dq, dk/dv) through the autograd
    Function, against plain fp32 autograd on `flash_attention_reference`, at
    the 480x640 training shapes and ragged ones, fp32 and bf16, bounded by
@@ -50,8 +53,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    heads-per-block forward (hp 2, 4, 8 at d = 40) against the plain version
    (head by head in fp32) at the joint-attention shapes of 768x768 and
    576x768 and ragged ones, fp32 and bf16, bounded as phase 3, with bf16
-   times beside the plain
-   version's and PyTorch's `scaled_dot_product_attention` (a yardstick only);
+   times beside the plain version's and PyTorch's
+   `scaled_dot_product_attention` (a yardstick only);
 10. GeoWizard end-to-end parity, fp32 with TF32 off: a full-width GeoWizard
    (SD1.5 UNet with the class embedding and joint attention, the SD VAE, the
    CLIP ViT-L/14 image tower) with seeded random weights runs one 256x256
@@ -103,19 +106,28 @@ E2E_BOUNDS = {  # fp32 pipeline output, GPU vs CPU (cuDNN vs CPU conv summation 
     "depth": 1e-3,
     "normals": 5e-3,  # unit-normalizing amplifies differences where |decoded| is small
 }
-ATTN_CASES = [  # (B, L, N, D); the kernel's tiles are 64 rows at d=64, 32 (bf16) / 16 (fp32) at d=512
+# (B, L, N, D). The bf16 kernel's tiles (Q rows x KV rows): 128 x 64 at d = 64, 64 x 32 at d = 512;
+# fp32 64 x 64 and 16 x 16
+ATTN_CASES = [
     (1, 9216, 5, 64),  # 768x768: UNet levels 0-2, VAE mid
     (1, 2304, 10, 64),
     (1, 576, 20, 64),
     (1, 9216, 1, 512),
     (1, 6912, 5, 64),  # 576x768: UNet levels 0-2, VAE mid
     (1, 1728, 10, 64),
-    (1, 432, 20, 64),  # ragged for the tiles: 6 * 64 + 48
+    (1, 432, 20, 64),  # ragged: 3 * 128 + 48 Q rows, 6 * 64 + 48 KV rows
     (1, 6912, 1, 512),
     (2, 4800, 1, 64),  # 480x640 level 0
-    (2, 300, 3, 64),  # ragged: 4 * 64 + 44
-    (3, 300, 1, 512),  # ragged: 9 * 32 + 12, 18 * 16 + 12
+    (2, 300, 3, 64),  # ragged: 2 * 128 + 44, 4 * 64 + 44
+    (3, 300, 1, 512),  # ragged: 4 * 64 + 44, 9 * 32 + 12 (fp32 18 * 16 + 12)
+    (2, 257, 3, 64),  # one valid column in the last KV tile
+    (1, 256, 4, 64),  # exactly two Q tiles and four KV tiles
+    (1, 257, 2, 512),
+    (1, 256, 1, 512),
 ]
+# q, k, v as views of one [B, L, 3 N D] projection (row stride 3 N D), and Lq != Lk: (B, Lq, Lk, N, D)
+LAYOUT_CASES = [(2, 1000, 1000, 8, 40), (2, 1000, 1000, 5, 64), (1, 300, 257, 2, 64), (1, 200, 513, 8, 40),
+                (1, 129, 300, 1, 512)]
 SITES_256 = 12  # kernel launches for one 256x256 image
 SITES_768 = 17  # kernel launches for one 768x768 or 576x768 image
 BWD_CASES = [  # (B, L, N, D): the 480x640 bs-2 training sites, then ragged ones
@@ -137,9 +149,12 @@ GEO_ATTN_CASES = [  # (B, L, N, D): GeoWizard's joint self-attention (2L tokens)
     (1, 13824, 8, 40),  # 576x768 (its 216-token mid block is plain)
     (1, 3456, 8, 80),
     (1, 864, 8, 160),
-    (2, 300, 8, 40),  # ragged: 4 * 64 + 44
-    (1, 437, 8, 160),  # ragged: 6 * 64 + 53, 13 * 32 + 21 (fp32)
+    (2, 300, 8, 40),  # ragged: 2 * 128 + 44 Q rows, 4 * 64 + 44 KV rows
+    (1, 437, 8, 160),  # ragged: 6 * 64 + 53 (fp32 13 * 32 + 21)
     (3, 333, 2, 80),
+    (1, 257, 8, 40),  # one valid column in the last KV tile
+    (1, 256, 8, 80),
+    (1, 257, 4, 160),
 ]
 MH_HEADS = (2, 4, 8)
 # forward launches per GeoWizard parity image: 10 UNet + 2 VAE at 256x256 (level 2's 128 joint
@@ -262,9 +277,27 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     return err, err / want.abs().max().item()
 
 
+def forward_times(fa, q, k, v, plain_reps: int = 10) -> dict:
+    """bf16 times of the forward kernel, its plain version and the library call
+    on the same inputs, with the bound; printed as one line's tail."""
+    shape = tuple(q.shape)
+    row = {"shape": list(shape), "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v), reps=plain_reps),
+           "library_ms": time_ms(lambda: sdpa(q, k, v)), "library": sdpa_backend(q, k, v),
+           **attention_bound(shape, q.dtype, matmuls=2, tensors=4)}
+    row["text"] = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library ({row['library']}) "
+                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}; kernel/library "
+                   f"{row['ms'] / row['library_ms']:.2f}, bound/kernel {row['bound_ms'] / row['ms']:.3f}")
+    return row
+
+
 def phase_kernels(fa) -> dict:
+    """The forward kernel against its plain version at the SD2 shapes and
+    ragged ones, fp32 and bf16; bf16 times beside the plain version's and the
+    library's. Returns the row of the JSON line (at the level-0 shape) with
+    the VAE mid block's numbers under `shapes`."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst, serving = 0.0, None
+    worst, rows = 0.0, {}
     for dtype, bound in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for shape in ATTN_CASES:
             q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
@@ -274,23 +307,46 @@ def phase_kernels(fa) -> dict:
             err, rel = rel_err(out, ref)
             check(bool(torch.isfinite(out).all()), f"kernel output not finite at {shape} {dtype}")
             check(rel <= bound, f"kernel vs plain max|d|/max|plain| {rel} > {bound} at {shape} {dtype}")
-            ms = time_ms(lambda: fa.flash_attention(q, k, v))
-            plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
-            torch.cuda.synchronize()
-            roof = attention_bound(shape, dtype, matmuls=2, tensors=4)["bound_ms"]  # at the bf16 peak
-            print(f"[kernel] {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e}, /max|plain| {rel:.3e} "
-                  f"(bound {bound}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                  + (f", roofline bound {roof:.4f} ms" if dtype == torch.bfloat16 else ""), flush=True)
+            line = f"[kernel] {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e}, /max|plain| {rel:.3e} (bound {bound})"
+            if dtype == torch.bfloat16:
+                rows[shape] = forward_times(fa, q, k, v)
+                line += "; " + rows[shape].pop("text")
+            else:
+                line += f"; kernel {time_ms(lambda: fa.flash_attention(q, k, v)):.4f} ms, " \
+                        f"plain {time_ms(lambda: fa.flash_attention_reference(q, k, v)):.4f}"
+            print(line, flush=True)
             worst = max(worst, err)
-            if dtype == torch.bfloat16 and shape == ATTN_CASES[0]:
-                library_ms = time_ms(lambda: sdpa(q, k, v))
-                print(f"[kernel] library: scaled_dot_product_attention ({sdpa_backend(q, k, v)}) "
-                      f"{library_ms:.4f} ms", flush=True)
-                serving = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                           **attention_bound(shape, dtype, matmuls=2, tensors=4)}
             del q, k, v, out, ref
-    return {"max_abs_err": worst, **serving}
+    row = rows[ATTN_CASES[0]]
+    return {"max_abs_err": worst, **{key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "shapes": [rows[(1, 9216, 1, 512)]]}
+
+
+def phase_forward_layouts(fa) -> float:
+    """The forward kernel on strided projections (q, k, v as views of one
+    [B, L, 3 N D] tensor) and on Lq != Lk, fp32 and bf16, against the plain
+    version on the same values. Returns the largest max|d|."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = 0.0
+    for dtype, bound in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
+        for b, lq, lk, n, d in LAYOUT_CASES:
+            if lq == lk:  # one projection, row stride 3 N D
+                qkv = torch.randn((b, lq, 3 * n * d), device="cuda", generator=gen).to(dtype)
+                q, k, v = qkv.view(b, lq, 3, n, d).unbind(2)
+                check(q.stride(1) == 3 * n * d and not q.is_contiguous(), f"q strides {q.stride()}")
+            else:
+                q = torch.randn((b, lq, n, d), device="cuda", generator=gen).to(dtype)
+                k, v = (torch.randn((b, lk, n, d), device="cuda", generator=gen).to(dtype) for _ in range(2))
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+            err, rel = rel_err(out, ref)
+            check(out.shape == (b, lq, n, d) and bool(torch.isfinite(out).all()), f"{tuple(out.shape)} not finite")
+            check(rel <= bound, f"kernel vs plain max|d|/max|plain| {rel} > {bound} at {(b, lq, lk, n, d)} {dtype}")
+            print(f"[layout] {str(dtype):15s} B,Lq,Lk,N,D={(b, lq, lk, n, d)}, q strides {q.stride()}: "
+                  f"max|d|={err:.3e}, /max|plain| {rel:.3e} (bound {bound})", flush=True)
+            worst = max(worst, err)
+    return worst
 
 
 def phase_backward(fa) -> dict:
@@ -766,11 +822,11 @@ def reference_by_head(fa, q, k, v) -> torch.Tensor:
 def phase_geowizard_kernels(fa) -> dict:
     """The forward kernel at GeoWizard's head dims and the heads-per-block
     kernel against the plain version, and their bf16 times beside the plain
-    version's and the library call's. Returns the two rows' numbers at the
-    768x768 level-0 shape (hp = 2 for the heads-per-block row)."""
+    version's and the library call's. Returns the heads-per-block row's
+    numbers at the 768x768 level-0 shape (hp = 2), and the forward's there."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {"flash_attention_fwd": 0.0, "flash_attention_fwd_mh": 0.0}
-    row = None
+    fwd_row = mh_ms = None
     for dtype, tol in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for shape in GEO_ATTN_CASES:
             q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
@@ -791,23 +847,17 @@ def phase_geowizard_kernels(fa) -> dict:
                 "max|d|/max|plain| " + ", ".join(f"hp={hp} {e[1]:.3e}" for hp, e in errs.items()) + f" (bound {tol})"
             del ref
             if dtype == torch.bfloat16:  # times in the serving dtype
-                ms = {hp: time_ms(lambda hp=hp: fa.flash_attention_mh(q, k, v, None, hp) if hp > 1
-                                  else fa.flash_attention(q, k, v)) for hp in outs}
-                plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), reps=5)
-                library_ms = time_ms(lambda: sdpa(q, k, v))
-                line += ("; ms " + ", ".join(f"hp={hp} {t:.4f}" for hp, t in ms.items())
-                         + f", plain {plain_ms:.4f}, library ({sdpa_backend(q, k, v)}) {library_ms:.4f}, "
-                         f"bound {attention_bound(shape, dtype, matmuls=2, tensors=4)['bound_ms']:.4f}")
+                times = forward_times(fa, q, k, v, plain_reps=5)
+                ms = {hp: time_ms(lambda hp=hp: fa.flash_attention_mh(q, k, v, None, hp)) for hp in outs if hp > 1}
+                line += "; " + times.pop("text") + "".join(f", hp={hp} {t:.4f} ms" for hp, t in ms.items())
                 if shape == GEO_ATTN_CASES[0]:
-                    numbers = {"plain_ms": plain_ms, "library_ms": library_ms,
-                               **attention_bound(shape, dtype, matmuls=2, tensors=4)}
-                    row = {"ms_hp1": ms[1], "ms": ms[2], **numbers}
+                    fwd_row, mh_ms = times, ms[2]
             print(line, flush=True)
             del q, k, v, outs
             torch.cuda.empty_cache()
-    return {"flash_attention_fwd_mh": {"max_abs_err": worst["flash_attention_fwd_mh"], "ms": row["ms"],
-                                       **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}},
-            "worst_fwd": worst["flash_attention_fwd"]}
+    return {"flash_attention_fwd_mh": {"max_abs_err": worst["flash_attention_fwd_mh"], "ms": mh_ms,
+                                       **{k: fwd_row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}},
+            "worst_fwd": worst["flash_attention_fwd"], "fwd_row": fwd_row}
 
 
 def geowizard_full_width(seed: int, device):
@@ -958,7 +1008,10 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
     _build.load_library()
 
-    numbers = {"flash_attention_fwd": phase_kernels(fa), **phase_backward(fa), **phase_gn_kernels()}
+    numbers = {"flash_attention_fwd": phase_kernels(fa)}
+    fwd = numbers["flash_attention_fwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], phase_forward_layouts(fa))
+    numbers.update({**phase_backward(fa), **phase_gn_kernels()})
     launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa))}  # no reference kept to its weights
     torch.cuda.empty_cache()
 
@@ -976,7 +1029,8 @@ def main() -> int:
 
     geo = phase_geowizard_kernels(fa)
     numbers["flash_attention_fwd_mh"] = geo["flash_attention_fwd_mh"]
-    numbers["flash_attention_fwd"]["max_abs_err"] = max(numbers["flash_attention_fwd"]["max_abs_err"], geo["worst_fwd"])
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], geo["worst_fwd"])
+    fwd["shapes"].insert(0, geo["fwd_row"])  # [1, 18432, 8, 40] beside the VAE mid block's [1, 9216, 1, 512]
     geo_path = phase_geowizard_serving(fa, phase_geowizard_parity(fa))
     # the forward kernel's launches: slice A's and slice B's serving runs
     launches["flash_attention_fwd"] += geo_path["flash_attention_fwd"]

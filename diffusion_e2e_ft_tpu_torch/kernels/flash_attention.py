@@ -47,7 +47,10 @@ GRAD_HEAD_DIMS = (64, 512)
 # the heads-per-block forward: narrow heads only, as the JAX picker (d < 64)
 MH_HEAD_DIMS = (40,)
 MH_HEADS = (2, 4, 8)
-MH_TILE = 64  # Q and KV tile rows of the d=40 kernel
+# The bf16 forward's tiles per head dim, as `Tile<D>` in csrc/flash_attention.cu:
+# (Q rows per block, KV rows per stage, warps splitting d)
+BF16_TILES = {40: (128, 64, 1), 64: (128, 64, 1), 80: (128, 64, 1), 160: (64, 64, 1), 512: (64, 32, 2)}
+MH_TILE = BF16_TILES[40][:2]  # (Q, KV) tile rows of the d=40 kernel
 _MAX_GRID_Y = 65535
 
 # Kernel launches since the last `reset_launches()`, one count per kernel;
@@ -177,10 +180,10 @@ def heads_per_cta(bn: int, lq: int, lk: int, d: int) -> int:
     """Heads per block for the forward, from `E2EFT_FA_HP` (default 1), read
     at each call. As the JAX `_pick_heads_per_program` without its VMEM term:
     hp > 1 only for narrow heads, when B*N divides by hp and Lq and Lk are each
-    at least one tile; any other value (or an hp the kernel is not built for)
-    gives 1, the one-head kernel."""
+    at least one tile (`MH_TILE`: the Q tile and the KV tile); any other value
+    (or an hp the kernel is not built for) gives 1, the one-head kernel."""
     hp = int(os.environ.get("E2EFT_FA_HP", "1"))
-    if hp not in MH_HEADS or d not in MH_HEAD_DIMS or bn % hp or lq < MH_TILE or lk < MH_TILE:
+    if hp not in MH_HEADS or d not in MH_HEAD_DIMS or bn % hp or lq < MH_TILE[0] or lk < MH_TILE[1]:
         return 1
     return hp
 

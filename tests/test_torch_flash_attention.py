@@ -1,13 +1,19 @@
 """Flash attention in the torch port: the plain version against the JAX package's
-Pallas kernel (interpreter mode on the CPU), the dispatch envelope at the main
-path's shapes, and the kernel wrapper's refusals.
+Pallas kernel (interpreter mode on the CPU), the bf16 kernel's schedule
+emulated in plain torch against the plain version, the dispatch envelope at
+the main path's shapes, and the kernel wrapper's refusals.
 
 The kernel itself runs only on the card; `chip_smoke.py` holds it to the plain
 version there."""
 
+import math
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -48,6 +54,76 @@ def test_reference_matches_pallas_kernel(interpret_mode, bn, lq, lk, d):
         *(torch.from_numpy(x)[:, :, None] for x in (q, k, v)), scale
     )[:, :, 0].numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def _emulate_bf16_schedule(q, k, v, scale, bq, bk, ds):
+    """The bf16 forward kernel's algorithm (csrc/flash_attention.cu) in plain
+    fp32 torch, [B, Lq, N, D] -> (out, lse [B, Lq, N]): d padded with zero
+    columns to a multiple of 16; Q in tiles of `bq` rows and K, V in tiles of
+    `bk` rows, zero-filled past Lq and Lk; each tile's logits summed from `ds`
+    partial products over slices of d; columns past Lk at -inf; an online
+    softmax in base 2 with scale * log2(e) folded into one multiply and the
+    running max kept in that scale; O rescaled once per KV tile; the LSE
+    converted back to the natural log as (m + log2 l) ln 2."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    dp = -(-d // 16) * 16
+    sl2 = scale * math.log2(math.e)
+
+    def tiles(t, rows):  # [B, L, N, D] -> [B, N, T, rows, DP], zero rows and columns past L and D
+        length = t.shape[1]
+        t = F.pad(t, (0, dp - d, 0, 0, 0, -length % rows))
+        return t.permute(0, 2, 1, 3).reshape(b, n, -1, rows, dp)
+
+    qt, kt, vt = tiles(q, bq), tiles(k, bk), tiles(v, bk)
+    w = dp // ds
+    out = torch.empty(b, n, qt.shape[2], bq, dp)
+    lse = torch.empty(b, n, qt.shape[2], bq)
+    for i in range(qt.shape[2]):
+        qi = qt[:, :, i]
+        m = torch.full((b, n, bq), -math.inf)
+        l = torch.zeros(b, n, bq)
+        acc = torch.zeros(b, n, bq, dp)
+        for j in range(kt.shape[2]):
+            s = sum(qi[..., p * w:(p + 1) * w] @ kt[:, :, j, :, p * w:(p + 1) * w].transpose(-1, -2)
+                    for p in range(ds))
+            s[..., max(lk - j * bk, 0):] = -math.inf
+            m_new = torch.maximum(m, s.amax(-1) * sl2)
+            corr = torch.exp2(m - m_new)
+            p_ = torch.exp2(s * sl2 - m_new[..., None])
+            l = l * corr + p_.sum(-1)
+            acc = acc * corr[..., None] + p_ @ vt[:, :, j]
+            m = m_new
+        out[:, :, i] = acc / l[..., None]
+        lse[:, :, i] = (m + torch.log2(l)) * math.log(2.0)
+    out = out.reshape(b, n, -1, dp)[:, :, :lq, :d].permute(0, 2, 1, 3)
+    return out, lse.reshape(b, n, -1)[:, :, :lq].transpose(1, 2)
+
+
+# fp32 on both sides: the emulation's online softmax differs from the one-pass
+# plain version only in summation order and in exp2 of a product against exp
+# of a difference, ~1e-7 relative; 1e-5 holds both out and lse.
+@pytest.mark.parametrize("lk", [256, 257, 300])
+@pytest.mark.parametrize("d", sorted(tfa.BF16_TILES))
+def test_bf16_schedule_matches_plain(d, lk):
+    bq, bk, ds = tfa.BF16_TILES[d]
+    rng = np.random.default_rng(d + lk)
+    q = torch.from_numpy(rng.standard_normal((1, 300, 2, d)).astype(np.float32))  # Lq ragged against bq
+    k, v = (torch.from_numpy(rng.standard_normal((1, lk, 2, d)).astype(np.float32)) for _ in range(2))
+    scale = d**-0.5
+    got_out, got_lse = _emulate_bf16_schedule(q, k, v, scale, bq, bk, ds)
+    want_out, want_lse = tfa.flash_attention_fwd_lse_reference(q, k, v, scale)
+    torch.testing.assert_close(got_out, want_out, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got_lse, want_lse, atol=1e-5, rtol=0)
+
+
+def test_tiles_match_the_kernel_source():
+    """`BF16_TILES` is the Python view of `Tile<D>` in the CUDA source."""
+    src = (Path(tfa.__file__).parent.parent / "csrc" / "flash_attention.cu").read_text()
+    found = {int(d): (int(bq), int(bk), int(ds)) for d, bq, bk, ds in re.findall(
+        r"struct Tile<(\d+)> \{\s*static constexpr int BQ = (\d+), BK = (\d+), DS = (\d+),", src)}
+    assert found == tfa.BF16_TILES
+    assert set(found) == set(tfa.HEAD_DIMS)
 
 
 def test_cpu_dispatch_takes_plain_version():

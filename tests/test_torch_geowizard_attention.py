@@ -90,7 +90,10 @@ def test_heads_per_cta_rule(monkeypatch):
     assert tfa.heads_per_cta(8, 9216, 9216, 64) == 1  # wide heads: never
     assert tfa.heads_per_cta(8, 4608, 4608, 80) == 1
     assert tfa.heads_per_cta(5, 18432, 18432, 40) == 1  # B*N not divisible
+    assert tfa.MH_TILE == (128, 64)  # the d=40 kernel's Q and KV tiles
     assert tfa.heads_per_cta(8, 32, 18432, 40) == 1  # Lq under one tile
+    assert tfa.heads_per_cta(8, 100, 18432, 40) == 1  # Lq under one 128-row Q tile
+    assert tfa.heads_per_cta(8, 128, 64, 40) == 2  # one Q tile and one KV tile
     assert tfa.heads_per_cta(8, 18432, 32, 40) == 1  # Lk under one tile
     for unbuilt in ("3", "16", "0"):  # values the JAX rule could take but the kernel is not built for
         monkeypatch.setenv("E2EFT_FA_HP", unbuilt)
