@@ -15,9 +15,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain version's and `scaled_dot_product_attention`'s (CUDA events);
    then q, k, v as strided views of one projection and Lq != Lk;
 4. the backward kernels (forward+LSE, dq, dk/dv) through the autograd
-   Function, against plain fp32 autograd on `flash_attention_reference`, at
-   the 480x640 training shapes and ragged ones, fp32 and bf16, bounded by
-   max |delta| / max |plain|; each kernel's time beside its plain version's;
+   Function, against plain fp32 autograd on `flash_attention_reference` (head
+   by head), at the 480x640 bs-2 training shapes of SD2 and of GeoWizard's
+   joint attention (d = 40, 80, 160) and ragged ones, fp32 and bf16, bounded
+   by max |delta| / max |plain|; at every bf16 training shape each kernel's
+   time beside its plain version's, the library's (SDPA's backward computes
+   dq, dk and dv in one call) and its bound; then `kernels.joint_attention`
+   under grad at GeoWizard's joint shape (one forward+LSE, one dq, one dk/dv
+   launch) against plain fp32 autograd;
 4b. the GroupNorm kernels: the statistics kernel and the fused
    GroupNorm+SiLU -> conv3x3 kernels, v1 (statistics, fold, conv) and v2 (one
    cooperative launch), against their plain versions at every GN -> conv
@@ -80,6 +85,7 @@ last line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import statistics
@@ -130,14 +136,25 @@ LAYOUT_CASES = [(2, 1000, 1000, 8, 40), (2, 1000, 1000, 5, 64), (1, 300, 257, 2,
                 (1, 129, 300, 1, 512)]
 SITES_256 = 12  # kernel launches for one 256x256 image
 SITES_768 = 17  # kernel launches for one 768x768 or 576x768 image
-BWD_CASES = [  # (B, L, N, D): the 480x640 bs-2 training sites, then ragged ones
-    (2, 4800, 5, 64),  # UNet level 0
+# (B, L, N, D): the 480x640 bs-2 training sites of SD2 and of GeoWizard's joint attention (2 L tokens), then
+# ragged ones, ragged against the bf16 tiles (`BWD_TILES`: 64, 32 or 16 rows) and the fp32 ones (64, 32, 16)
+BWD_TRAIN_CASES = [
+    (2, 4800, 5, 64),  # SD2 UNet level 0
     (2, 1200, 10, 64),  # level 1
     (2, 300, 20, 64),  # level 2, ragged: 4 * 64 + 44
     (2, 4800, 1, 512),  # VAE decoder mid (differentiated)
-    (2, 300, 3, 64),
-    (3, 300, 1, 512),  # ragged: 18 * 16 + 12 (fp32), 9 * 32 + 12 / 18 * 16 + 12 (bf16)
+    (2, 9600, 8, 40),  # GeoWizard joint level 0
+    (2, 2400, 8, 80),  # level 1
+    (2, 600, 8, 160),  # level 2: 9 * 64 + 24, 18 * 32 + 24
 ]
+BWD_CASES = BWD_TRAIN_CASES + [
+    (2, 300, 3, 64),
+    (3, 300, 1, 512),  # ragged: 4 * 64 + 44, 9 * 32 + 12, 18 * 16 + 12
+    (2, 300, 8, 40),  # ragged: 4 * 64 + 44, 9 * 32 + 12
+    (3, 333, 2, 80),  # 5 * 64 + 13, 10 * 32 + 13
+    (1, 257, 4, 160),  # one valid row in the last tile, either side
+]
+GRAD_ROUTE_SHAPE = (4, 4800, 8, 40)  # GeoWizard's joint [2B, L, N, D] at 480x640 bs 2, under grad
 VAE_PAIRS = 48  # GN -> conv pairs of the SD2 VAE: 10 encoder + 14 decoder ResnetBlocks, two each
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -349,19 +366,64 @@ def phase_forward_layouts(fa) -> float:
     return worst
 
 
+def plain_grads(fa, q, k, v, do) -> list:
+    """(out, lse, dq, dk, dv) of plain fp32 autograd on `flash_attention_reference`,
+    one head at a time (a [2, 9600, 8, 40] call at once would hold ~6 GB per logit tensor)."""
+    heads = []
+    for h in range(q.shape[2]):
+        leaves = [t[:, :, h:h + 1].float().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention_reference(*leaves)
+        lse = fa.flash_attention_fwd_lse_reference(*(x.detach() for x in leaves))[1]
+        heads.append((out.detach(), lse, *torch.autograd.grad(out, leaves, do[:, :, h:h + 1].float())))
+    return [torch.cat(parts, dim=2) for parts in zip(*heads)]
+
+
+def backward_times(fa, q, k, v, do, out, lse) -> dict:
+    """bf16 times of forward+LSE, dq and dk/dv, each beside its plain version
+    (plain autograd restricted to the same outputs) and the library (SDPA's
+    forward with inputs requiring grad; its backward computes dq, dk and dv
+    in one call), with each kernel's bound."""
+    shape, dtype = tuple(q.shape), q.dtype
+    delta = (do.float() * out.float()).sum(-1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = fa.flash_attention_reference(*plain)
+    lib = [t.clone().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*lib)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, lib, do, retain_graph=True))
+    rows = {
+        "flash_attention_fwd_lse": (time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v)),
+                                    time_ms(lambda: fa.flash_attention_fwd_lse_reference(q, k, v), reps=5),
+                                    time_ms(lambda: sdpa(*lib)), attention_bound(shape, dtype, 2, 4, fp32_rows=1)),
+        "flash_attention_bwd_dq": (
+            time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+            time_ms(lambda: torch.autograd.grad(plain_out, plain[0], do, retain_graph=True), reps=5),
+            lib_bwd, attention_bound(shape, dtype, 3, 5, fp32_rows=2)),
+        "flash_attention_bwd_dkv": (
+            time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
+            time_ms(lambda: torch.autograd.grad(plain_out, plain[1:], do, retain_graph=True), reps=5),
+            lib_bwd, attention_bound(shape, dtype, 4, 6, fp32_rows=2)),
+    }
+    print(f"[bwd-time] bf16 B,L,N,D={shape}, library scaled_dot_product_attention ({sdpa_backend(q, k, v)}): "
+          + "; ".join(f"{n.replace('flash_attention_', '')} kernel {a:.4f} ms, plain {p:.4f}, library {lb:.4f}, "
+                      f"bound {bd['bound_ms']:.4f} ({bd['bound_by']}), kernel/library {a / lb:.2f}"
+                      for n, (a, p, lb, bd) in rows.items()), flush=True)
+    return {n: {"shape": list(shape), "ms": a, "plain_ms": p, "library_ms": lb, **bd}
+            for n, (a, p, lb, bd) in rows.items()}
+
+
 def phase_backward(fa) -> dict:
     """forward+LSE, dq and dk/dv kernels (through the autograd Function) against
-    plain fp32 autograd on `flash_attention_reference`, and their times."""
+    plain fp32 autograd on `flash_attention_reference`, fp32 and bf16 at every
+    case, and their bf16 times at every training shape. Returns each kernel's
+    row of the JSON line at the first training shape, the others under `shapes`."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {name: 0.0 for name in ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
-    times = {}
+    names = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    timed: dict = {}
     for dtype, bound in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for shape in BWD_CASES:
             q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
-            leaves = [t.float().requires_grad_() for t in (q, k, v)]
-            ref_out = fa.flash_attention_reference(*leaves)
-            ref = (ref_out.detach(), fa.flash_attention_fwd_lse_reference(*leaves)[1].detach(),
-                   *torch.autograd.grad(ref_out, leaves, do.float()))
+            ref = plain_grads(fa, q, k, v, do)
             out, lse = fa.flash_attention_fwd_lse(q, k, v)
             inputs = [t.clone().requires_grad_() for t in (q, k, v)]
             grads = torch.autograd.grad(fa.flash_attention_autograd(*inputs), inputs, do)
@@ -373,50 +435,55 @@ def phase_backward(fa) -> dict:
                 errs[label] = rel_err(got, want)
                 check(errs[label][1] <= bound,
                       f"{label} kernel vs plain max|d|/max|plain| {errs[label][1]} > {bound} at {shape} {dtype}")
-            for name, labels in (("flash_attention_fwd_lse", ("out", "lse")), ("flash_attention_bwd_dq", ("dq",)),
-                                 ("flash_attention_bwd_dkv", ("dk", "dv"))):
+            for name, labels in zip(names, (("out", "lse"), ("dq",), ("dk", "dv"))):
                 worst[name] = max(worst[name], *(errs[x][0] for x in labels))
-            del leaves, ref_out, ref, inputs, grads
-
-            # times: each kernel alone, against the plain version of the same function
-            delta = (do.float() * out.float()).sum(-1)
-            plain = [t.clone().requires_grad_() for t in (q, k, v)]
-            plain_out = fa.flash_attention_reference(*plain)
-            t = {
-                "flash_attention_fwd_lse": (time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v)),
-                                            time_ms(lambda: fa.flash_attention_fwd_lse_reference(q, k, v))),
-                "flash_attention_bwd_dq": (
-                    time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
-                    time_ms(lambda: torch.autograd.grad(plain_out, plain[0], do, retain_graph=True))),
-                "flash_attention_bwd_dkv": (
-                    time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)),
-                    time_ms(lambda: torch.autograd.grad(plain_out, plain[1:], do, retain_graph=True))),
-                "backward": (time_ms(lambda: fa.flash_attention_bwd(q, k, v, do, out, lse)),
-                             time_ms(lambda: torch.autograd.grad(plain_out, plain, do, retain_graph=True))),
-            }
             print(f"[bwd] {str(dtype):15s} B,L,N,D={shape}: max|d|/max|plain| "
-                  + ", ".join(f"{x} {e[1]:.2e}" for x, e in errs.items()) + f" (bound {bound}); ms kernel/plain: "
-                  + ", ".join(f"{n.replace('flash_attention_', '')} {a:.3f}/{b:.3f}" for n, (a, b) in t.items()),
-                  flush=True)
-            if dtype == torch.bfloat16 and shape == BWD_CASES[0]:
-                # the library: PyTorch's fused attention forward with its LSE (inputs that
-                # require grad), and its backward, which computes dq, dk and dv in one call
-                lib = [t.clone().requires_grad_() for t in (q, k, v)]
-                lib_out = sdpa(*lib)
-                lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, lib, do, retain_graph=True))
-                library = {"flash_attention_fwd_lse": time_ms(lambda: sdpa(*lib)),
-                           "flash_attention_bwd_dq": lib_bwd, "flash_attention_bwd_dkv": lib_bwd}
-                print(f"[bwd] library: scaled_dot_product_attention ({sdpa_backend(q, k, v)}) forward "
-                      f"{library['flash_attention_fwd_lse']:.3f} ms, backward (dq, dk, dv) {lib_bwd:.3f} ms",
-                      flush=True)
-                bounds = {"flash_attention_fwd_lse": attention_bound(shape, dtype, 2, 4, fp32_rows=1),
-                          "flash_attention_bwd_dq": attention_bound(shape, dtype, 3, 5, fp32_rows=2),
-                          "flash_attention_bwd_dkv": attention_bound(shape, dtype, 4, 6, fp32_rows=2)}
-                times = t
-                del lib, lib_out
-            del q, k, v, do, out, lse, delta, plain, plain_out
-    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1],
-                   "library_ms": library[name], **bounds[name]} for name in worst}
+                  + ", ".join(f"{x} {e[1]:.2e}" for x, e in errs.items()) + f" (bound {bound})", flush=True)
+            del ref, inputs, grads
+            if dtype == torch.bfloat16 and shape in BWD_TRAIN_CASES:
+                timed[shape] = backward_times(fa, q, k, v, do, out, lse)
+            del q, k, v, do, out, lse
+            torch.cuda.empty_cache()
+    first, rest = timed[BWD_TRAIN_CASES[0]], [timed[s] for s in BWD_TRAIN_CASES[1:]]
+    return {name: {"max_abs_err": worst[name], **{key: first[name][key] for key in
+                                                  ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                   "shapes": [row[name] for row in rest]} for name in names}
+
+
+def phase_grad_route(fa) -> None:
+    """`kernels.joint_attention` under grad on the card, bf16, at GeoWizard's
+    joint training shape: one forward+LSE, one dq and one dk/dv launch, and
+    the output and gradients within the bound of plain fp32 autograd over the
+    same task pairing."""
+    from diffusion_e2e_ft_tpu_torch import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    two_b, length, n, d = GRAD_ROUTE_SHAPE
+    q, k, v, do = (torch.randn(GRAD_ROUTE_SHAPE, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+    inputs = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launches()
+    out = kernels.joint_attention(*inputs)
+    grads = torch.autograd.grad(out, inputs, do)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {**dict.fromkeys(launches, 0), "flash_attention_fwd_lse": 1, "flash_attention_bwd_dq": 1,
+            "flash_attention_bwd_dkv": 1}
+    check(launches == want, f"joint attention under grad launched {launches}")
+
+    def pair(t):  # [2B, L, N, D] -> [B, 2L, N, D], as `joint_attention`
+        return t.reshape(2, two_b // 2, length, n, d).transpose(0, 1).reshape(two_b // 2, 2 * length, n, d)
+
+    def unpair(t):
+        return t.reshape(two_b // 2, 2, length, n, d).transpose(0, 1).reshape(two_b, length, n, d)
+
+    ref = plain_grads(fa, *(pair(t) for t in (q, k, v, do)))
+    errs = {label: rel_err(got, unpair(want))[1]
+            for label, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref[0], *ref[2:]))}
+    print(f"[grad-route] bf16 joint_attention under grad at {GRAD_ROUTE_SHAPE}: launches {launches}; "
+          "max|d|/max|plain| " + ", ".join(f"{x} {e:.2e}" for x, e in errs.items()) + f" (bound {BF16_BOUND})",
+          flush=True)
+    for label, e in errs.items():
+        check(e <= BF16_BOUND, f"joint attention under grad: {label} max|d|/max|plain| {e} > {BF16_BOUND}")
 
 
 def phase_gn_kernels() -> dict:
@@ -922,6 +989,7 @@ def phase_geowizard_serving(fa, fp32_pipe) -> dict:
                               "pytorch_model.bin"),
         })
         del fp32_pipe, p
+        gc.collect()  # the fp32 UNet sits in a reference cycle: free it before the bf16 peak below
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         pipe = GeoWizardPipeline.from_hf_dir(ckpt, dtype=torch.bfloat16)  # the device defaults to the card
@@ -1011,7 +1079,9 @@ def main() -> int:
     numbers = {"flash_attention_fwd": phase_kernels(fa)}
     fwd = numbers["flash_attention_fwd"]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], phase_forward_layouts(fa))
-    numbers.update({**phase_backward(fa), **phase_gn_kernels()})
+    numbers.update(phase_backward(fa))
+    phase_grad_route(fa)
+    numbers.update(phase_gn_kernels())
     launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa))}  # no reference kept to its weights
     torch.cuda.empty_cache()
 

@@ -118,32 +118,6 @@ struct Bf16Smem {
   static constexpr int bytes = s_off + (C::DS > 1 ? C::DS * C::BQ * LDS * 4 : 0);
 };
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ROWS rows of D bf16 from global (row stride `ld` elements) into shared
-// memory (row stride LDT), asynchronously; rows at or past `valid` are zero.
-template <int D, int LDT, int THREADS, int ROWS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, int64_t ld, int valid) {
-  constexpr int CHUNKS = D / 8, TOTAL = ROWS * CHUNKS;
-#pragma unroll
-  for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    if (TOTAL % THREADS == 0 || i < TOTAL) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      const bool ok = r < valid;
-      cp_async16(dst + r * LDT + c, src + (ok ? r * ld + c : 0), ok);
-    }
-  }
-}
-
 template <int D, bool kLse, int HP>
 __global__ void __launch_bounds__(Bf16Smem<D>::THREADS, Tile<D>::MIN_BLOCKS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -445,7 +419,7 @@ flash_fwd_kernel_fp32(const float* __restrict__ q, const float* __restrict__ k, 
     float* ob = o + b * o_sb + n * o_sn + q0 * o_sl;
 
     if (h > 0) __syncthreads();  // the previous head's O and l are stored
-    load_tile<float, D, L::LDT, THREADS>(sQ, q + b * q_sb + n * q_sn + q0 * q_sl, q_sl, BQ, q_valid);
+    load_tile<D, L::LDT, THREADS>(sQ, q + b * q_sb + n * q_sn + q0 * q_sl, q_sl, BQ, q_valid);
     for (int i = threadIdx.x; i < BQ * L::LDT; i += THREADS) sO[i] = 0.f;
     for (int i = threadIdx.x; i < BQ; i += THREADS) {
       sM[i] = -INFINITY;
@@ -455,8 +429,8 @@ flash_fwd_kernel_fp32(const float* __restrict__ q, const float* __restrict__ k, 
     for (int kv0 = 0; kv0 < Lk; kv0 += BK) {
       const int kv_valid = min(BK, Lk - kv0);
       __syncthreads();  // previous tile's K, V, S are consumed
-      load_tile<float, D, L::LDT, THREADS>(sK, kb + kv0 * k_sl, k_sl, BK, kv_valid);
-      load_tile<float, D, L::LDT, THREADS>(sV, vb + kv0 * v_sl, v_sl, BK, kv_valid);
+      load_tile<D, L::LDT, THREADS>(sK, kb + kv0 * k_sl, k_sl, BK, kv_valid);
+      load_tile<D, L::LDT, THREADS>(sV, vb + kv0 * v_sl, v_sl, BK, kv_valid);
       __syncthreads();
 
       for (int i = threadIdx.x; i < BQ * BK; i += THREADS) {  // S = Q K^T (unscaled)
@@ -484,14 +458,14 @@ flash_fwd_kernel_fp32(const float* __restrict__ q, const float* __restrict__ k, 
         const float m_new = fmaxf(m_prev, mx);  // finite: every tile has a valid column
         float sum = 0.f;
         for (int c = sub; c < BK; c += TPR) {
-          const float p = exp_<false>(srow[c] - m_new);
+          const float p = expf(srow[c] - m_new);
           sum += p;
           srow[c] = p;
         }
 #pragma unroll
         for (int off = TPR / 2; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
         if (sub == 0) {
-          const float corr = exp_<false>(m_prev - m_new);  // 0 on the first tile
+          const float corr = expf(m_prev - m_new);  // 0 on the first tile
           sM[row] = m_new;
           sL[row] = sL[row] * corr + sum;
           sC[row] = corr;
@@ -562,17 +536,22 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides (elements): q (b, l, n), k, v, o.
 // lse: null for the plain forward, else a contiguous fp32 [B, Lq, N] array
-// that receives each row's natural-log log-sum-exp (D = 64 or 512; the head
-// dims of the trained models). Returns 0, a cudaError_t from the launch, or
-// -1 for an unsupported (dtype, head dim) pair. Launches on `stream` and
-// does not synchronise.
+// that receives each row's natural-log log-sum-exp. Both take D = 40, 64, 80,
+// 160 or 512. Returns 0, a cudaError_t from the launch, or -1 for an
+// unsupported (dtype, head dim) pair. Launches on `stream` and does not
+// synchronise.
 int e2eft_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
                               int N, int Lq, int Lk, int D, float scale, const int64_t* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lse != nullptr) {
-    if (D == 64) return launch_variant<64, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
-    if (D == 512) return launch_variant<512, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
-    return -1;
+    switch (D) {
+      case 40: return launch_variant<40, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+      case 64: return launch_variant<64, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+      case 80: return launch_variant<80, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+      case 160: return launch_variant<160, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+      case 512: return launch_variant<512, true, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);
+      default: return -1;
+    }
   }
   switch (D) {
     case 40: return launch_variant<40, false, 1>(dtype, q, k, v, o, lse, B, N, Lq, Lk, scale, strides, st);

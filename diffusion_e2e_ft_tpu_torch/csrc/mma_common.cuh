@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 kernels
-// (flash_attention.cu, gn_conv.cu): `cp.async` 16-byte copies global ->
-// shared with their group bookkeeping, `ldmatrix` fragment loads, and the
-// `mma.sync` m16n8k16 bf16 product with fp32 accumulators. Each translation
-// unit gets its own copy.
+// (flash_attention.cu, flash_attention_bwd.cu, gn_conv.cu): `cp.async` copies
+// global -> shared with their group bookkeeping and a row loader on top,
+// `ldmatrix` fragment loads, the `mma.sync` m16n8k16 bf16 product with fp32
+// accumulators, the fast base-2 exponential and named barriers. Each
+// translation unit gets its own copy.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 (4 regs of 2 bf16): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same
@@ -28,6 +29,13 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared (through L1: the 16-byte form is the only one that
+// may bypass it); zero when !valid, as above.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -71,6 +79,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ROWS rows of D bf16 from global (row stride `ld` elements) into shared
+// memory (row stride LDT), asynchronously; rows at or past `valid` are zero.
+template <int D, int LDT, int THREADS, int ROWS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, int64_t ld, int valid) {
+  constexpr int CHUNKS = D / 8, TOTAL = ROWS * CHUNKS;
+#pragma unroll
+  for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    if (TOTAL % THREADS == 0 || i < TOTAL) {
+      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      const bool ok = r < valid;
+      cp_async16(dst + r * LDT + c, src + (ok ? r * ld + c : 0), ok);
+    }
+  }
 }
 
 }  // namespace

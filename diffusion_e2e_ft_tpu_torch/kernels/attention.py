@@ -3,14 +3,15 @@ and GeoWizard's joint cross-task attention.
 
 A CPU tensor takes the plain version. A CUDA tensor inside the kernels'
 envelope launches the flash-attention kernels, and raises if it cannot; there
-is no fallback. The envelope depends on the route:
+is no fallback. The envelope is head dims 40, 64, 80, 160 and 512 (the SD2
+models' and GeoWizard's) and sequences of at least `MIN_SEQ`; inside it a call
+takes one of two routes:
 
 - the forward route (no input requires grad: serving, the frozen encoder
-  under `no_grad`) takes head dims 40, 64, 80, 160 and 512, with
-  `E2EFT_FA_HP` selecting the heads-per-block kernel at d = 40;
+  under `no_grad`), with `E2EFT_FA_HP` selecting the heads-per-block kernel
+  at d = 40;
 - the differentiable route (forward+LSE now, dq and dk/dv in the backward)
-  takes 64 and 512. A CUDA call under grad at another forward head dim
-  raises `NotImplementedError`: those are the GeoWizard trainer's shapes.
+  when an input requires grad.
 
 Outside the envelope (cross-attention over the 1-, 2- or 77-token context,
 the UNet mid-block's 80-216 tokens) attention is plain matmul and softmax, as
@@ -28,28 +29,19 @@ from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
 MIN_SEQ = 256
 
 
-def in_kernel_envelope(lq: int, lk: int, d: int, grad: bool = False) -> bool:
-    """Shape-only predicate: which attention calls the kernels serve, on the
-    forward route or (`grad=True`) the differentiable one.
+def in_kernel_envelope(lq: int, lk: int, d: int) -> bool:
+    """Shape-only predicate: which attention calls the kernels serve.
 
     The JAX envelope is d <= 512 and Lq >= 256 with a KV block that fits; the
-    kernels here take the head dims the ported paths have."""
-    head_dims = fa.GRAD_HEAD_DIMS if grad else fa.HEAD_DIMS
-    return d in head_dims and lq >= MIN_SEQ and lk >= MIN_SEQ
+    kernels here take the head dims the ported models have."""
+    return d in fa.HEAD_DIMS and lq >= MIN_SEQ and lk >= MIN_SEQ
 
 
 def cuda_route(lq: int, lk: int, d: int, needs_grad: bool) -> str:
     """Which implementation a CUDA call takes: "plain", "forward" or "autograd"."""
     if not in_kernel_envelope(lq, lk, d):
         return "plain"
-    if not needs_grad:
-        return "forward"
-    if not in_kernel_envelope(lq, lk, d, grad=True):
-        raise NotImplementedError(
-            f"attention under grad at head dim {d} has no backward kernel yet: the GeoWizard trainer's "
-            f"head dims (40, 80, 160) come with that trainer (slice B2, ROADMAP item 19)"
-        )
-    return "autograd"
+    return "autograd" if needs_grad else "forward"
 
 
 def attention(

@@ -12,7 +12,9 @@ Kernels (CUDA C++ for sm_90a, see the sources' header notes for their design):
   replacing `::_flash_kernel_lse`: the output plus the fp32 per-row
   log-sum-exp that the backward needs.
 - `flash_attention_bwd` launches `csrc/flash_attention_bwd.cu`'s two kernels,
-  replacing `::_dq_kernel` and `::_dkv_kernel`.
+  replacing `::_dq_kernel` and `::_dkv_kernel`. Their bf16 body keeps S, dP,
+  P, ds and the accumulators in registers and streams its operand tiles
+  through a `cp.async` ring; `BWD_TILES` mirrors its tiles.
 
 On the H100 all of them are compute-bound at the main path's long sequences
 (O(L^2 d) FLOPs per head against O(L d) bytes).
@@ -38,18 +40,28 @@ import torch
 
 from diffusion_e2e_ft_tpu_torch.kernels import _build
 
-# Head dims the kernels are instantiated for. The forward: the SD2 UNet (64),
-# the VAE mid block (512) and GeoWizard's SD1.5 UNet (40, 80, 160). The
-# differentiable route (forward+LSE, dq, dk/dv): the trained SD2 models only;
-# the GeoWizard trainer's head dims come with that trainer.
+# Head dims the kernels are instantiated for: the SD2 UNet (64), the VAE mid
+# block (512) and GeoWizard's SD1.5 UNet (40, 80, 160). The differentiable
+# route (forward+LSE, dq, dk/dv) takes every one of them.
 HEAD_DIMS = (40, 64, 80, 160, 512)
-GRAD_HEAD_DIMS = (64, 512)
+GRAD_HEAD_DIMS = HEAD_DIMS
 # the heads-per-block forward: narrow heads only, as the JAX picker (d < 64)
 MH_HEAD_DIMS = (40,)
 MH_HEADS = (2, 4, 8)
 # The bf16 forward's tiles per head dim, as `Tile<D>` in csrc/flash_attention.cu:
 # (Q rows per block, KV rows per stage, warps splitting d)
 BF16_TILES = {40: (128, 64, 1), 64: (128, 64, 1), 80: (128, 64, 1), 160: (64, 64, 1), 512: (64, 32, 2)}
+# The bf16 backward's tiles per head dim and kernel, as `BwdTile<D, kDkv>` in
+# csrc/flash_attention_bwd.cu: (rows a block owns, rows a streamed tile, warps
+# splitting d). The dq block owns Q rows and streams K / V; the dk/dv block
+# owns K / V rows and streams Q / dO.
+BWD_TILES = {
+    40: {"dq": (64, 64, 1), "dkv": (64, 32, 1)},
+    64: {"dq": (64, 64, 1), "dkv": (64, 64, 1)},
+    80: {"dq": (64, 32, 1), "dkv": (64, 32, 1)},
+    160: {"dq": (64, 32, 1), "dkv": (64, 32, 2)},
+    512: {"dq": (64, 16, 2), "dkv": (32, 16, 4)},
+}
 MH_TILE = BF16_TILES[40][:2]  # (Q, KV) tile rows of the d=40 kernel
 _MAX_GRID_Y = 65535
 
@@ -153,7 +165,7 @@ def _strides(*tensors: torch.Tensor):
 
 
 def _forward(q, k, v, scale, with_lse: bool):
-    _check(q, k, v, GRAD_HEAD_DIMS if with_lse else HEAD_DIMS)
+    _check(q, k, v)
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, lq, n), dtype=torch.float32, device=q.device) if with_lse else None
@@ -214,7 +226,7 @@ def flash_attention_fwd_lse(
 
 def _bwd_launch(name, q, k, v, do, lse, delta, scale, outs):
     """Check the backward's operands and launch kernel `name`, which writes `outs`."""
-    _check(q, k, v, GRAD_HEAD_DIMS)
+    _check(q, k, v)
     _check_operand("dO", do, q.dtype, q.device)
     b, lq, n, d = q.shape
     if do.shape != q.shape:

@@ -50,12 +50,13 @@ def switcher_embedding(domain_vec, batch: int = 1) -> torch.Tensor:
 
 @dataclasses.dataclass
 class GeoWizardOutput:
-    """Depth in [0, 1]; unit normals in [-1, 1]."""
+    """Depth in [0, 1]; unit normals in [-1, 1]. The JAX package's fields, in its order."""
 
     depth_np: Optional[np.ndarray] = None
     depth_colored: Optional[np.ndarray] = None
     normal_np: Optional[np.ndarray] = None
     normal_colored: Optional[np.ndarray] = None
+    uncertainty: Optional[np.ndarray] = None  # None for a single member (ensembles: slice C)
 
 
 class GeoWizardPipeline:
@@ -163,10 +164,16 @@ class GeoWizardPipeline:
         ensemble_size: int = 1,
         processing_res: int = 768,
         match_input_res: bool = True,
+        batch_size: int = 1,
         noise: str = "zeros",
         domain: str = "indoor",
+        seed: Optional[int] = None,
         color_map: Optional[str] = "Spectral",
+        ensemble_kwargs: Optional[dict] = None,
     ) -> GeoWizardOutput:
+        """The JAX package's arguments, in its order. With one member and zeros
+        noise `batch_size`, `seed` and `ensemble_kwargs` leave the output as it
+        is; an ensemble or random noise, where they would change it, raises."""
         if denoising_steps < 1 or ensemble_size < 1:
             raise ValueError("denoising_steps and ensemble_size must be >= 1")
         if ensemble_size != 1:

@@ -26,10 +26,13 @@ from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
 
 @dataclasses.dataclass
 class MarigoldOutput:
-    """Depth in [0, 1]; normals in [-1, 1]."""
+    """Depth in [0, 1]; normals in [-1, 1]. The JAX package's fields, in its
+    order; `uncertainty` stays None for a single member (the ensembles that
+    fill it are slice C)."""
 
     depth_np: Optional[np.ndarray] = None
     depth_colored: Optional[np.ndarray] = None
+    uncertainty: Optional[np.ndarray] = None
     normal_np: Optional[np.ndarray] = None
     normal_colored: Optional[np.ndarray] = None
 
@@ -89,6 +92,9 @@ class MarigoldPipeline:
         self.scheduler_config = scheduler_config
         self.schedule = sched_ops.make_schedule(scheduler_config, device=self.device)
         self.empty_text_embed = torch.as_tensor(np.asarray(empty_text_embed)).to(self.device, dtype)
+
+    def with_mesh(self, mesh) -> "MarigoldPipeline":
+        raise NotImplementedError("multi-device ensembles (with_mesh) are not ported yet (slice F: multi-GPU)")
 
     @classmethod
     def from_hf_dir(cls, path: str, device="cuda", dtype=torch.float32, **kw) -> "MarigoldPipeline":
@@ -160,12 +166,22 @@ class MarigoldPipeline:
         processing_res: int = 768,
         match_input_res: bool = True,
         resample_method: str = "bilinear",
+        batch_size: int = 0,
         noise: str = "zeros",
         normals: bool = False,
+        seed: Optional[int] = None,
         color_map: Optional[str] = "Spectral",
+        ensemble_kwargs: Optional[dict] = None,
     ) -> MarigoldOutput:
+        """The JAX package's arguments, in its order. With one member and zeros
+        noise `batch_size` (members per device call), `seed` (it keys only the
+        noise) and `ensemble_kwargs` (they tune only the ensembling) leave the
+        output as it is; an ensemble or random noise, where they would change
+        it, raises."""
         if denoising_steps < 1:
             raise ValueError("denoising_steps must be >= 1")
+        if ensemble_size < 1:
+            raise ValueError("ensemble_size must be >= 1")
         if ensemble_size != 1:
             raise NotImplementedError("ensembles are not ported yet (slice C: multi-step, noise, ensembles)")
         img = np.asarray(image)

@@ -11,7 +11,8 @@ batches. After two warm-up steps it prints:
 - the step's split, forward (encode + UNet + decode + loss) / backward /
   optimizer, from CUDA events around each, median of 5;
 - over 3 steps under torch.profiler: host wall time, summed kernel time, the
-  idle share 1 - kernel time / wall, and kernel time grouped by kind.
+  idle share 1 - kernel time / wall, kernel time grouped by kind, and the
+  peak device memory of those steps.
 
 The profiler's per-op tables go to `--out`. Imports no JAX.
 """
@@ -82,6 +83,7 @@ def main() -> int:
           f"backward {bwd:.2f} ms, optimizer {opt:.2f} ms", flush=True)
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -91,7 +93,8 @@ def main() -> int:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e3
     print(f"[train 480x640 bs 2] profiler, {STEPS} steps: wall {wall:.1f} ms, kernel time {busy:.1f} ms, "
-          f"idle share {1.0 - busy / wall:.3f}", flush=True)
+          f"idle share {1.0 - busy / wall:.3f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     by_kind: dict = {}
     for e in kernels:
         by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + e.device_time / 1e3

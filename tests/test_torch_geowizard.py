@@ -10,6 +10,7 @@ Tolerances: the UNet and the device bodies 1e-4 (fp32 summation order through
 the towers); `__call__` 1e-3, since it min-max rescales the depth by its
 small random-weight range, which amplifies those differences."""
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from diffusion_e2e_ft_tpu.models import convert as jconvert
 from diffusion_e2e_ft_tpu.ops import scheduler as jsched
 from diffusion_e2e_ft_tpu.pipelines import GeoWizardPipeline as JGeoWizard
 from diffusion_e2e_ft_tpu.pipelines import loading as jloading
+from diffusion_e2e_ft_tpu.pipelines.geowizard import GeoWizardOutput as JGeoWizardOutput
 from diffusion_e2e_ft_tpu.pipelines.geowizard import domain_one_hot as j_one_hot
 from diffusion_e2e_ft_tpu.pipelines.geowizard import switcher_embedding as j_switcher
 from diffusion_e2e_ft_tpu_torch import kernels
@@ -33,7 +35,7 @@ from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UN
 from diffusion_e2e_ft_tpu_torch.models import clip as tclip
 from diffusion_e2e_ft_tpu_torch.models import convert as tconvert
 from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline, MarigoldPipeline, loading as tloading
-from diffusion_e2e_ft_tpu_torch.pipelines.geowizard import domain_one_hot, switcher_embedding
+from diffusion_e2e_ft_tpu_torch.pipelines.geowizard import GeoWizardOutput, domain_one_hot, switcher_embedding
 
 tattn = importlib.import_module("diffusion_e2e_ft_tpu_torch.kernels.attention")
 
@@ -171,6 +173,25 @@ def test_call_matches(pipes):
     np.testing.assert_allclose(got.depth_np, want.depth_np, atol=1e-3, rtol=0)
     np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)
     assert got.normal_colored.dtype == np.uint8
+
+
+def test_call_with_jax_keywords_matches(pipes):
+    """The JAX keyword set runs in both packages with the same output: with one
+    member and zeros noise, `seed`, `batch_size` and `ensemble_kwargs` change
+    nothing, and `uncertainty` stays None."""
+    jp, tp = pipes
+    image = np.random.default_rng(14).integers(0, 256, (H, W, 3), dtype=np.uint8)
+    kw = dict(processing_res=H, domain="indoor", color_map=None, seed=0, batch_size=1, ensemble_kwargs={})
+    want, got = jp(image, **kw), tp(image, **kw)
+    np.testing.assert_allclose(got.depth_np, want.depth_np, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)
+    assert got.uncertainty is None and want.uncertainty is None
+
+
+def test_output_fields_match_jax():
+    names = [f.name for f in dataclasses.fields(GeoWizardOutput)]
+    assert names == [f.name for f in dataclasses.fields(JGeoWizardOutput)]
+    assert names[-1] == "uncertainty"
 
 
 def test_unported_options_raise(pipes):

@@ -119,10 +119,12 @@ def test_cuda_routes(lq, lk, d, needs_grad, route):
 
 @pytest.mark.parametrize("d", [40, 80, 160])
 def test_cuda_route_under_grad_raises_at_geowizard_head_dims(d):
+    """Under grad, GeoWizard's head dims take the differentiable route (the
+    backward kernels) as the SD2 ones do; nothing raises."""
     assert kernels.in_kernel_envelope(9216, 9216, d)
-    assert not kernels.in_kernel_envelope(9216, 9216, d, grad=True)
-    with pytest.raises(NotImplementedError, match="GeoWizard trainer"):
-        tattn.cuda_route(9216, 9216, d, needs_grad=True)
+    assert d in tfa.GRAD_HEAD_DIMS and tfa.GRAD_HEAD_DIMS == tfa.HEAD_DIMS
+    assert tattn.cuda_route(9216, 9216, d, needs_grad=True) == "autograd"
+    assert tattn.cuda_route(9216, 9216, d, needs_grad=False) == "forward"
 
 
 def test_cpu_joint_attention_is_differentiable_and_launches_nothing():

@@ -7,6 +7,7 @@ postprocess) agree to 1e-4, the towers' fp32 summation-order bound. `__call__`
 then min-max rescales the depth, which divides by its (small, random-weight)
 range and so amplifies those differences: 1e-3 there."""
 
+import dataclasses
 import io
 import json
 import urllib.request
@@ -24,8 +25,10 @@ from diffusion_e2e_ft_tpu.models import clip as jclip
 from diffusion_e2e_ft_tpu.ops import image as jim
 from diffusion_e2e_ft_tpu.ops import scheduler as jsched
 from diffusion_e2e_ft_tpu.pipelines import loading as jloading
+from diffusion_e2e_ft_tpu.pipelines.marigold import MarigoldOutput as JMarigoldOutput
 from diffusion_e2e_ft_tpu_torch.cli.serve import PipelineService, serve
 from diffusion_e2e_ft_tpu_torch.pipelines import loading as tloading
+from diffusion_e2e_ft_tpu_torch.pipelines.marigold import MarigoldOutput
 
 TINY_VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_groups=4)
 TINY_TEXT = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64)
@@ -85,6 +88,33 @@ def test_call_matches(pipes, image, normals):
     a, b = getattr(got, field), getattr(want, field)
     assert a.shape == b.shape == ((64, 48, 3) if normals else (64, 48))
     np.testing.assert_allclose(a, b, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("normals,batch_size", [(False, 2), (True, 1)], ids=["depth", "normals"])
+def test_call_with_jax_keywords_matches(pipes, image, normals, batch_size):
+    """The JAX keyword set runs in both packages with the same output: with one
+    member and zeros noise, `seed`, `batch_size` (JAX runs the batch and keeps
+    the first member) and `ensemble_kwargs` change nothing, and `uncertainty`
+    stays None."""
+    jp, tp = pipes
+    kw = dict(processing_res=64, normals=normals, color_map=None, seed=0, batch_size=batch_size,
+              ensemble_kwargs={})
+    want, got = jp(image, **kw), tp(image, **kw)
+    field = "normal_np" if normals else "depth_np"
+    np.testing.assert_allclose(getattr(got, field), getattr(want, field), atol=1e-3, rtol=0)
+    assert got.uncertainty is None and want.uncertainty is None
+
+
+def test_output_fields_match_jax():
+    names = [f.name for f in dataclasses.fields(MarigoldOutput)]
+    assert names == [f.name for f in dataclasses.fields(JMarigoldOutput)]
+    assert names == ["depth_np", "depth_colored", "uncertainty", "normal_np", "normal_colored"]
+
+
+def test_with_mesh_raises_naming_slice_f(pipes):
+    _, tp = pipes
+    with pytest.raises(NotImplementedError, match="slice F"):
+        tp.with_mesh(None)
 
 
 def test_unported_options_raise(pipes, image):
