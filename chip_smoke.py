@@ -214,6 +214,7 @@ GN_CASES = [
     (3, 128, 9, 9, 96),  # Cout ragged for the 64-wide channel tiles
 ]
 GN_BOUND = {torch.float32: FP32_BOUND, torch.bfloat16: BF16_BOUND}  # max|d| / max|plain fp32|
+GN_TRAIN_LAUNCHES = dict(zip(GN_CASES[:8], (9, 1, 1, 8, 1, 1, 9, 18)))  # launches of each shape per train step
 
 
 def kernel_modules() -> tuple:
@@ -486,11 +487,49 @@ def phase_grad_route(fa) -> None:
         check(e <= BF16_BOUND, f"joint attention under grad: {label} max|d|/max|plain| {e} > {BF16_BOUND}")
 
 
+def gn_conv_only(gc, gn, x, gw, gb, groups, eps, weight, bias, silu):
+    """The v1 conv kernel alone (statistics, weight layout and output made
+    beforehand), as the wrapper launches it; counted in a dict of its own."""
+    from diffusion_e2e_ft_tpu_torch.kernels import _build
+
+    b, c, h, w = x.shape
+    cout = weight.shape[0]
+    stats = gn.channel_stats(x)
+    wk = weight.permute(0, 2, 3, 1).contiguous()
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    counts = {"gn_silu_conv3x3": 0}
+    args = (x.data_ptr(), stats.data_ptr(), gw.data_ptr(), gb.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), _build.DTYPE_CODES[x.dtype], int(silu), b, c, cout, h, w, groups, float(eps))
+    return lambda: _build.launch(counts, "gn_silu_conv3x3", x, *args)
+
+
+def device_kernels(fn, reps: int = 1) -> list:
+    """The CUDA kernels of `reps` calls of `fn` (torch.profiler), after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Summed kernel time of one call on the card (profiler), without the
+    host's launch gaps, which CUDA events around one small call include."""
+    return sum(e.device_time for e in device_kernels(fn, reps)) / 1e3 / reps
+
+
 def phase_gn_kernels() -> dict:
     """The GroupNorm statistics kernel and the fused GN(+SiLU) -> conv3x3
-    kernels (v1: statistics, fold, conv; v2: one cooperative launch) against
-    their plain versions in fp32 on the same values, and their times beside
-    the plain versions' in the same dtype."""
+    kernels (v1: statistics, then the conv with the fold in its prologue; v2:
+    one cooperative launch) against their plain versions in fp32 on the same
+    values, the statistics twice for identical bits; then, in bf16 at every
+    train-step shape, each kernel's time beside its bound, the plain version's
+    and the library's (`torch.var_mean`; GroupNorm -> SiLU -> cuDNN conv, three
+    calls), and the sums weighted by the launches of one train step."""
     from diffusion_e2e_ft_tpu_torch.kernels import gn_conv as gc
     from diffusion_e2e_ft_tpu_torch.kernels import groupnorm as gn
 
@@ -499,8 +538,9 @@ def phase_gn_kernels() -> dict:
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, device="cuda", generator=gen) * scale + shift
 
-    worst = dict.fromkeys(("gn_channel_stats", "gn_silu_conv3x3", "gn_silu_conv3x3_v2"), 0.0)
-    times = {}
+    names = ("gn_channel_stats", "gn_silu_conv3x3", "gn_silu_conv3x3_v2")
+    worst = dict.fromkeys(names, 0.0)
+    rows: dict = {}
     for dtype in (torch.float32, torch.bfloat16):
         bound = GN_BOUND[dtype]
         for case in GN_CASES:
@@ -511,13 +551,15 @@ def phase_gn_kernels() -> dict:
             weight = randn(co, c, 3, 3, scale=(9 * c) ** -0.5).to(dtype)  # the compute dtype's values
             bias = randn(co, scale=0.1)
             gn_args = (gw, gb, 32, 1e-6, weight, bias, silu)
-            stats = gn.channel_stats(x)
+            stats, again = gn.channel_stats(x), gn.channel_stats(x)
             want_stats = gn.channel_stats_reference(x)
             outs = {}
             for form in ("v1", "v2"):
                 os.environ["E2EFT_GNCONV_IMPL"] = form
                 outs[form] = gc.gn_conv_kernel(x, *gn_args)
+            os.environ.pop("E2EFT_GNCONV_IMPL")
             torch.cuda.synchronize()
+            check(torch.equal(stats, again), f"gn_channel_stats: two calls differ at {case} {dtype}")
             want = gc.gn_conv_reference(x.float(), gw, gb, 32, 1e-6, weight.float(), bias, silu)
             errs = {"gn_channel_stats": rel_err(stats, want_stats), "gn_silu_conv3x3": rel_err(outs["v1"], want),
                     "gn_silu_conv3x3_v2": rel_err(outs["v2"], want)}
@@ -527,36 +569,77 @@ def phase_gn_kernels() -> dict:
             for name, (err, rel) in errs.items():
                 check(rel <= bound, f"{name} kernel vs plain max|d|/max|plain| {rel} > {bound} at {case} {dtype}")
                 worst[name] = max(worst[name], err)
-            v2_v1 = rel_err(outs["v2"], outs["v1"].float())[1]
+            line = (f"[gn] {str(dtype):15s} B,C,H,W={case[:4]} -> {co}{'' if silu else ' (no SiLU)'}: "
+                    "max|d|/max|plain| " + ", ".join(f"{n.replace('gn_', '')} {e[1]:.2e}" for n, e in errs.items())
+                    + f" (bound {bound}), v2 vs v1 {rel_err(outs['v2'], outs['v1'].float())[1]:.2e}; "
+                    "statistics bit-identical over two calls")
+            del stats, again, want_stats, outs, want
+            if dtype == torch.bfloat16 and case in GN_TRAIN_LAUNCHES:
+                rows[case] = gn_times(gc, gn, x, gw, gb, weight, bias, silu)
+                line += "; " + rows[case].pop("text")
+            print(line, flush=True)
+            del x
+            torch.cuda.empty_cache()
 
-            t = {"gn_channel_stats": (time_ms(lambda: gn.channel_stats(x)),
-                                      time_ms(lambda: gn.channel_stats_reference(x)))}
-            plain_ms = time_ms(lambda: gc.gn_conv_reference(x, *gn_args))
-            for form, name in (("v1", "gn_silu_conv3x3"), ("v2", "gn_silu_conv3x3_v2")):
-                os.environ["E2EFT_GNCONV_IMPL"] = form
-                t[name] = (time_ms(lambda: gc.gn_conv_kernel(x, *gn_args)), plain_ms)
-            os.environ.pop("E2EFT_GNCONV_IMPL")
-            print(f"[gn] {str(dtype):15s} B,C,H,W={case[:4]} -> {co}{'' if silu else ' (no SiLU)'}: "
-                  "max|d|/max|plain| " + ", ".join(f"{n.replace('gn_', '')} {e[1]:.2e}" for n, e in errs.items())
-                  + f" (bound {bound}), v2 vs v1 {v2_v1:.2e}; ms kernel/plain: "
-                  + ", ".join(f"{n.replace('gn_', '')} {a:.3f}/{p:.3f}" for n, (a, p) in t.items()), flush=True)
-            if dtype == torch.bfloat16 and case == GN_CASES[0]:
-                # the library: per-(b, c) moments in one call; the composite GroupNorm -> SiLU ->
-                # cuDNN conv in three (no single PyTorch call computes the fused function)
-                stats_lib = time_ms(lambda: torch.var_mean(x, dim=(2, 3)))
-                conv_lib = time_ms(lambda: F.conv2d(F.silu(F.group_norm(x, 32, gw.to(dtype), gb.to(dtype), 1e-6)),
-                                                    weight, bias.to(dtype), padding=1))
-                print(f"[gn] library: torch.var_mean {stats_lib:.3f} ms; group_norm -> silu -> conv2d (3 calls) "
-                      f"{conv_lib:.3f} ms", flush=True)
-                library = {"gn_channel_stats": stats_lib, "gn_silu_conv3x3": conv_lib, "gn_silu_conv3x3_v2": conv_lib}
-                itemsize = x.element_size()
-                conv = roofline(2.0 * b * h * w * co * c * 9, (x.numel() + weight.numel() + b * co * h * w) * itemsize)
-                bounds = {"gn_channel_stats": roofline(3.0 * x.numel(), x.numel() * itemsize + b * 2 * c * 4),
-                          "gn_silu_conv3x3": conv, "gn_silu_conv3x3_v2": conv}
-                times = t
-            del x, stats, want_stats, outs, want
-    return {name: {"max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1],
-                   "library_ms": library[name], **bounds[name]} for name in worst}
+    def step_sum(name, key):
+        return sum(k * rows[s][name][key] for s, k in GN_TRAIN_LAUNCHES.items())
+
+    print(f"[gn] per train step ({sum(GN_TRAIN_LAUNCHES.values())} launches each, bf16), events: "
+          + ", ".join(f"{n.replace('gn_', '')} {step_sum(n, 'ms'):.3f} ms (bound {step_sum(n, 'bound_ms'):.3f})"
+                      for n in names)
+          + f"; group_norm -> silu -> conv2d {step_sum('gn_silu_conv3x3', 'library_ms'):.3f} ms; device: stats "
+          f"{step_sum('gn_channel_stats', 'device_ms'):.3f}, conv {step_sum('gn_silu_conv3x3', 'conv_device_ms'):.3f}, "
+          f"v1 pair {step_sum('gn_silu_conv3x3', 'device_ms'):.3f}, library "
+          f"{step_sum('gn_silu_conv3x3', 'library_device_ms'):.3f} ms; eager launches per v1 pair "
+          f"{rows[GN_CASES[0]]['eager_launches']}", flush=True)
+    first = rows[GN_CASES[0]]
+    return {n: {"max_abs_err": worst[n], **{k: first[n][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                         "bound_by")},
+                "per_step_ms": step_sum(n, "ms"), "per_step_bound_ms": step_sum(n, "bound_ms"),
+                "shapes": [rows[s][n] for s in GN_TRAIN_LAUNCHES if s != GN_CASES[0]]} for n in names}
+
+
+def gn_times(gc, gn, x, gw, gb, weight, bias, silu) -> dict:
+    """bf16 times at one shape: the statistics kernel, the v1 pair (statistics
+    + conv, as the wrapper runs them) and its conv kernel alone, v2, the plain
+    versions and the library calls, with each kernel's bound."""
+    b, c, h, w = x.shape
+    co = weight.shape[0]
+    gn_args = (gw, gb, 32, 1e-6, weight, bias, silu)
+    itemsize = x.element_size()
+    flops = 2.0 * b * h * w * co * c * 9
+    conv_bound = roofline(flops, (x.numel() + weight.numel() + b * co * h * w) * itemsize)
+    stats_bound = roofline(3.0 * x.numel(), x.numel() * itemsize + b * 2 * c * 4)
+    fns = {"stats": lambda: gn.channel_stats(x), "v1": lambda: gc.gn_conv_kernel(x, *gn_args),
+           "conv": gn_conv_only(gc, gn, x, gw, gb, 32, 1e-6, weight, bias, silu),
+           "library": lambda: F.conv2d(F.silu(F.group_norm(x, 32, gw.to(x.dtype), gb.to(x.dtype), 1e-6)),
+                                       weight, bias.to(x.dtype), padding=1)}
+    ev = {k: time_ms(f) for k, f in fns.items()}
+    dev = {k: device_ms(f) for k, f in fns.items()}
+    stats, v1, conv, library = ev["stats"], ev["v1"], ev["conv"], ev["library"]
+    plain = time_ms(lambda: gc.gn_conv_reference(x, *gn_args))
+    os.environ["E2EFT_GNCONV_IMPL"] = "v2"
+    v2 = time_ms(fns["v1"])
+    os.environ.pop("E2EFT_GNCONV_IMPL")
+    row = {
+        "gn_channel_stats": {"shape": list(x.shape), "ms": stats, "device_ms": dev["stats"],
+                             "plain_ms": time_ms(lambda: gn.channel_stats_reference(x)),
+                             "library_ms": time_ms(lambda: torch.var_mean(x, dim=(2, 3))), **stats_bound},
+        "gn_silu_conv3x3": {"shape": list(x.shape) + [co], "ms": v1, "device_ms": dev["v1"], "conv_ms": conv,
+                            "conv_device_ms": dev["conv"], "plain_ms": plain, "library_ms": library,
+                            "library_device_ms": dev["library"], **conv_bound},
+        "gn_silu_conv3x3_v2": {"shape": list(x.shape) + [co], "ms": v2, "plain_ms": plain, "library_ms": library,
+                               **conv_bound},
+    }
+    if (b, c, h, w, co) == GN_CASES[0]:
+        row["eager_launches"] = len(device_kernels(fns["v1"]))
+    row["text"] = (f"ms (events / device): stats {stats:.4f} / {dev['stats']:.4f} (bound "
+                   f"{stats_bound['bound_ms']:.4f}, {stats_bound['bound_ms'] / dev['stats']:.2f} of it; var_mean "
+                   f"{row['gn_channel_stats']['library_ms']:.4f}), v1 {v1:.4f} / {dev['v1']:.4f} = conv {conv:.4f} / "
+                   f"{dev['conv']:.4f} ({flops / dev['conv'] / 1e9:.0f} TFLOP/s, {conv_bound['bound_ms'] / dev['conv']:.3f} "
+                   f"of the bound {conv_bound['bound_ms']:.4f}) + stats, v2 {v2:.4f}, library (3 calls) {library:.4f} / "
+                   f"{dev['library']:.4f}, plain {plain:.4f}")
+    return row
 
 
 def phase_e2e_parity(fa):

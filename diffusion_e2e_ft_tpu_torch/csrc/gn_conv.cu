@@ -1,13 +1,15 @@
 // Fused GroupNorm(+SiLU) -> SAME 3x3 conv for Hopper (sm_90a), in two forms.
 //
-// v1, gn_conv_kernel, replaces diffusion_e2e_ft_tpu/kernels/gn_conv.py::
-// _conv_kernel (launched there by _pallas_gn_conv): given the per-channel
-// fp32 a, b of the GroupNorm (from the statistics kernel, groupnorm.cu, and
-// a [B, C] fold in torch), it computes
+// v1 replaces diffusion_e2e_ft_tpu/kernels/gn_conv.py::_conv_kernel
+// (launched there by _pallas_gn_conv). From x, the per-channel fp32 sums of
+// the statistics kernel (groupnorm.cu, [B, 2, C]), the GroupNorm's fp32
+// weight and bias, `groups` and `eps`, it computes
 //     out = conv3x3_SAME(act(x)) + bias,   act(x)[c] = silu(x[c] * a[c] + b[c])
-// with the activation zero outside the image: the conv pads the ACTIVATION
-// with zeros, and silu(0 * a + b) is not 0, so padding x instead would be
-// wrong at every border pixel.
+// with a, b folded from the sums in the kernel's prologue (group mean,
+// E[x^2] - mean^2 clamped at 0, rsqrt(var + eps) * w, b = bias - mean * a:
+// `fold_groups`, gn_common.cuh) and the activation zero outside the image:
+// the conv pads the ACTIVATION with zeros, and silu(0 * a + b) is not 0, so
+// padding x instead would be wrong at every border pixel.
 //
 // v2, gn_conv_v2_kernel, replaces ::_conv_kernel_v2 (launched by
 // _pallas_gn_conv_v2): the same output from raw x in one launch. The TPU
@@ -17,35 +19,65 @@
 // runs the statistics kernel's row reduction over the (b, c) rows into an
 // fp32 scratch buffer, cooperative_groups' grid.sync() separates the phases,
 // then each block folds the groups of its image into a, b in shared memory
-// (mean, variance clamped at 0, rsqrt) and walks its conv tiles with v1's body.
+// and walks its conv tiles with `conv_tile` (below).
 //
 // Layout: x and out are NCHW, as the port's modules hold them; the weights
 // arrive as [Cout, 3, 3, C] (OHWI, rearranged and cast by the wrapper). The
 // conv is an implicit GEMM over one image: M = output pixels, N = Cout,
-// K = 9 taps x C. A block owns a tile of TH x TW = 8 x 16 output pixels and
-// BN = 128 output channels. For each chunk of BK = 32 input channels it stages
-// in shared memory (a) the activation of the tile's (TH + 2) x (TW + 2) halo,
-// normalized + SiLU'd once in fp32 and cast to the compute dtype, with zeros
-// outside the image, pixels as rows and channels contiguous, and (b) the nine
-// taps' [BN x BK] weight slabs. Every tap's operand is then the halo shifted
-// by (dy, dx) rows, read in place, so each input value is normalized about
-// 1.4 times per output-channel tile instead of nine times. Ragged H, W and
-// Cout are masked in the kernel.
+// K = 9 taps x C.
 //
-// Products: bf16 through `ldmatrix` + `mma.sync` m16n8k16 (fp32
-// accumulators; each warp 32 pixels x 64 channels); fp32 by scalar FMA over
-// the same fragments' layout, which keeps fp32 results exact to summation
-// order (no TF32). The bias is added in fp32 before the cast to the output,
-// through a shared-memory staging of the tile so the NCHW stores coalesce.
+// v1 in bf16 (`gn_conv_wgmma_kernel`, namespace `hop`). What bounds it on the
+// H100: at C = Cout = 128 an output pixel costs 2 * 9 * 128 * 128 FLOPs
+// against ~2 * 128 bytes of x read and written, about 576 FLOPs per byte,
+// above the card's ~295: compute-bound on the tensor cores. The design:
+// - Products: `wgmma.mma_async` m64n128k16, bf16 in, fp32 accumulators in
+//   registers, both operands from shared memory. A block is two warpgroups
+//   (256 threads) and a tile of TH x TW = 4 x 64 output pixels by BN = 128
+//   output channels; each warpgroup owns two tile rows, one m64 block each.
+//   A is the activation halo in wgmma's unswizzled K-major layout, [channel
+//   group of 8][halo pixel][8 channels]: any 8 consecutive pixels of a group
+//   are one 128-byte core matrix, so each tap's A operand is the halo
+//   shifted by (dy, dx) pixels, read in place through its descriptor (a tile
+//   row of 64 pixels is one m64 block: TW = 64 keeps the rows' stride
+//   uniform). B, one tap's [BN][BKC = 64] weight slab, is in the 128-byte
+//   swizzled K-major layout (chunk j of row n at j ^ (n % 8)).
+// - A ring of STAGES = 5 weight slabs, AHEAD = 3 of them in flight
+//   (`cp.async`, one commit group a slab, zeros past Cout): the K loop walks
+//   (64-channel chunk, tap) slabs with one block barrier each, and each
+//   tap's 8 wgmmas a warpgroup are one commit group, one of them left in
+//   flight across the barrier.
+// - The activation is double-buffered by chunk: while chunk i's products
+//   run, the raw x halo of chunk i + 1 is loaded into registers as 16-byte
+//   runs along w (8 runs a halo row of 66 columns; the two edge columns one
+//   value each; scalar loads where W % 8 != 0), two channels a lane, and
+//   normalised, SiLU'd, zero-masked outside the image and cast once per
+//   staged value into the other buffer, one run item a tap two taps after
+//   its loads, after the tap's wgmmas are issued. SiLU is h + h tanh(h) with
+//   h = y / 2 (a and b are folded halved): one MUFU operation a value.
+//   Dedicating a third warpgroup to the activation (warp specialisation)
+//   measured slower: one warp a scheduler could not hide its latencies.
+// - Weight restaging: each block streams all 9 * C * BN weights once for
+//   256 output pixels (the `conv_tile` body: for 128). At [2,128,480,640] -> 128 the
+//   launch moves 2400 blocks x 295 KB = 708 MB of weights from L2 into
+//   shared memory against 157 MB of x: 4.5x, half of the old 9x.
+// - Waves: one block an SM (~190 KB of shared memory, 255 registers a
+//   thread). The 60x80 decoder layer (512 -> 512) is 240 blocks on 132 SMs,
+//   1.82 waves: the SMs are 91% busy over the launch, the second wave 82%
+//   (the `conv_tile` body: 320 blocks, 1.21 waves of two, 61%). BN = 64 there (480
+//   blocks, 3.6 waves, also 91%) measured slower: the halo transform is per
+//   block, so it doubles against the products; the tile stays the same at
+//   every shape.
+// - Epilogue: the fp32 bias added to the accumulators, the tile staged
+//   through shared memory as bf16 [BN][256 pixels], and NCHW stored as
+//   16-byte runs along w (scalar at a ragged edge).
+// Ragged H, W and Cout are masked in the kernel; C must be a multiple of 64.
 //
-// What bounds it on the H100: at C = Cout = 128 an output pixel costs
-// 2 * 9 * 128 * 128 FLOPs against ~2 * 128 bytes of x read and written, about
-// 576 FLOPs per byte, above the card's ~295: compute-bound on the tensor
-// cores. This kernel has one shared-memory stage (the loads of a chunk do not
-// overlap its products inside a block; two resident blocks an SM overlap each
-// other; inside the load phase the weights copy asynchronously while the halo
-// loads, issued in batches, are in flight) and no wgmma or TMA,
-// so it sits far below the 989 TFLOP/s bf16 peak.
+// v1 in fp32 keeps the scalar body (`gn_conv_kernel`, `conv_tile` below),
+// exact to summation order (no TF32), with the same in-kernel fold. v2 keeps
+// the `conv_tile` body in both dtypes: an 8 x 16-pixel tile, BN = 128, its halo
+// normalised once per 32-channel chunk into shared memory, the nine taps'
+// weights copied with `cp.async`; bf16 by `ldmatrix` + `mma.sync` m16n8k16,
+// fp32 by scalar FMA; one shared-memory stage.
 
 #include <cooperative_groups.h>
 
@@ -55,6 +87,8 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+// ---- the `conv_tile` body (v1 in fp32, v2) ----
 
 constexpr int TH = 8, TW = 16;                  // output tile: rows x columns of one image
 constexpr int BM = TH * TW;                     // 128 output pixels
@@ -297,20 +331,431 @@ __device__ void conv_tile(const T* __restrict__ xb, const float* sa, const float
   __syncthreads();
 }
 
+// ---- v1 in bf16: the wgmma body ----
+
+namespace hop {
+
+constexpr int TH = 4, TW = 64;                 // output tile: rows x columns of one image; a tile row is one m64 block
+constexpr int BM = TH * TW;                    // 256 output pixels: two warpgroups x two tile rows
+constexpr int BN = 128;                        // output channels a tile
+constexpr int BKC = 64;                        // input channels per chunk: one 128-byte weight row
+constexpr int HALO_H = TH + 2, HALO_W = TW + 2, HALO = HALO_H * HALO_W;  // 396 halo pixels
+constexpr int HALO_PAD = 401;                  // pixels a channel group: = 1 mod 8, conflict-free stores
+constexpr int STAGES = 5, AHEAD = 3;           // weight slab ring; slabs in flight ahead of the products
+constexpr int THREADS = 256;
+constexpr int TAPS = 9;
+constexpr int VECS = TW / 8;                   // 16-byte runs of a halo row inside the tile's columns
+constexpr int RUN_ITEMS = HALO_H * VECS / (THREADS / 32);  // 6 a thread: (row, run); lane = channel pair
+constexpr int EDGE_ITEMS = 2;                  // (row, side): 12 items over 8 warps
+constexpr int LDO = BM + 8;                    // epilogue staging row stride, bf16
+constexpr int ACT_BYTES = BKC / 8 * HALO_PAD * 16;  // one activation buffer
+static_assert(RUN_ITEMS == 6 && HALO_H * VECS % (THREADS / 32) == 0 && BKC == 2 * 32, "a lane: two channels");
+static_assert(HALO_H * 2 <= EDGE_ITEMS * (THREADS / 32), "the edge items");
+static_assert(HALO_PAD >= HALO && HALO_PAD % 8 == 1, "channel groups apart by 1 mod 8 x 16 bytes");
+
+constexpr int SLAB = BN * BKC * 2;             // one tap's [BN][64] bf16 weights
+constexpr int SMEM_ACT = STAGES * SLAB;        // the ring first: 1024-byte aligned (the swizzle atom)
+constexpr int SMEM_AB = SMEM_ACT + 2 * ACT_BYTES;   // a[C], b[C] fp32, then the bias [BN]
+static_assert(BN * LDO * 2 <= 2 * ACT_BYTES, "the epilogue's staging fits the activation buffers");
+
+int smem_bytes(int C) { return 1024 + SMEM_AB + (2 * C + BN) * 4; }  // 1024: room to align the base
+
+// The activation's layout, [channel group of 8][halo pixel (HALO_PAD)][8
+// channels]: 8 consecutive pixels of one group are one 128-byte core matrix
+// of wgmma's unswizzled K-major layout, from any first pixel, so each tap's
+// A operand is the halo shifted by (dy, dx) pixels through its descriptor.
+__device__ __forceinline__ int act_index(int p, int k) { return ((k >> 3) * HALO_PAD + p) * 8 + (k & 7); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// plain and cp.async writes to shared memory (generic proxy) made visible to
+// wgmma's reads (async proxy)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptors (start address >> 4, leading byte offset
+// >> 4 at bit 16, stride byte offset >> 4 at bit 32, layout type at bit 62).
+// B: K-major [N][64] bf16, 128-byte rows in the 128-byte swizzle (layout 1),
+// 1024 bytes between 8-row groups (the leading offset is unused).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+// A: K-major, unswizzled (layout 0): 128 bytes between 8-row groups (along
+// M), HALO_PAD * 16 bytes between the two 8-channel halves of k16 (along K).
+__device__ __forceinline__ uint64_t act_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(HALO_PAD) << 16) | (8ull << 32);
+}
+
+// d[64 x 128] += a[64 x 16] * b[16 x 128], both from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// A thread's part of each weight slab: rows n = threadIdx.x / 8 + 32 it
+// (output channel n0 + n, zeros past Cout), 16-byte chunk j = threadIdx.x % 8
+// of the row's 64 input channels, stored at chunk j ^ (n % 8) (the 128-byte
+// swizzle) of the row's 128 bytes. Only the slab's offset in the weights
+// changes from one slab to the next.
+struct SlabLoader {
+  static constexpr int ROWS = BN * 8 / THREADS;  // rows a thread copies
+  const bf16* src;                               // row threadIdx.x / 8, chunk j, of the first slab
+  int64_t row_step;                              // 32 rows of [Cout, 3, 3, C]
+  int dst;                                       // byte offset of the first row's chunk in a slot
+  int rows_in;                                   // of this thread's rows, those below Cout
+  const bf16* any;                               // a mapped address for the zero-filled copies
+
+  __device__ SlabLoader(const bf16* wk, int C, int Cout, int n0) : any(wk) {
+    const int n = threadIdx.x / 8, j = threadIdx.x % 8;
+    row_step = static_cast<int64_t>(32) * TAPS * C;
+    src = wk + static_cast<int64_t>(n0 + n) * TAPS * C + 8 * j;
+    dst = n * 128 + ((j ^ (n & 7)) << 4);
+    rows_in = 0;
+#pragma unroll
+    for (int it = 0; it < ROWS; ++it) rows_in += n0 + n + 32 * it < Cout;
+  }
+
+  // slab (chunk, tap) into the slot at `slot`
+  __device__ __forceinline__ void load(unsigned char* slot, int chunk, int tap, int C) const {
+    const int64_t off = static_cast<int64_t>(tap) * C + chunk * BKC;
+#pragma unroll
+    for (int it = 0; it < ROWS; ++it) {
+      const bool ok = it < rows_in;
+      cp_async16(slot + dst + it * 32 * 128, ok ? src + it * row_step + off : any, ok);
+    }
+  }
+};
+
+// The tile's image and place: raw x is read as 16-byte runs of 8 columns
+// (zeros where outside the image; the activation is masked again when it is
+// stored).
+struct HaloTile {
+  const bf16* xb;  // this image's x, from the chunk's first channel
+  int64_t HW;
+  int H, W, h0, w0;
+  bool aligned;  // W % 8 == 0: every run inside the image is one 16-byte load
+};
+
+__device__ __forceinline__ void run_item(int k, int& r, int& v) {
+  const int id = threadIdx.x / 32 + (THREADS / 32) * k;  // (row, run)
+  r = id / VECS;
+  v = id % VECS;
+}
+
+__device__ __forceinline__ bool edge_item(int k, int& r, int& side) {
+  const int id = threadIdx.x / 32 + (THREADS / 32) * k;  // (row, side)
+  r = id / 2;
+  side = id % 2;
+  return id < HALO_H * 2;
+}
+
+__device__ __forceinline__ uint4 load_run(const HaloTile& t, int c, int r, int v) {
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  const int h = t.h0 - 1 + r, w = t.w0 + 8 * v;
+  if (h < 0 || h >= t.H || w >= t.W) return raw;
+  const bf16* p = t.xb + c * t.HW + static_cast<int64_t>(h) * t.W + w;
+  if (t.aligned) return __ldg(reinterpret_cast<const uint4*>(p));
+  unsigned short* e = reinterpret_cast<unsigned short*>(&raw);
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (w + j < t.W) e[j] = q[j];
+  return raw;
+}
+
+__device__ __forceinline__ unsigned short load_edge(const HaloTile& t, int c, int r, int side) {
+  const int h = t.h0 - 1 + r, w = side ? t.w0 + TW : t.w0 - 1;
+  if (h < 0 || h >= t.H || w < 0 || w >= t.W) return 0;
+  return reinterpret_cast<const unsigned short*>(t.xb)[c * t.HW + static_cast<int64_t>(h) * t.W + w];
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// act(x) of two channels' raw bf16 values, packed as bf16x2 (the first in the
+// low half, the lower address); zeros outside the image (the conv's padding
+// of the activation). SiLU as h + h tanh(h) with h = y / 2 = x a / 2 + b / 2
+// (the fold halves a and b under SiLU): one FMA, one MUFU operation and one
+// FMA a value.
+template <bool kSilu>
+__device__ __forceinline__ uint32_t act_pair(uint32_t r0, uint32_t r1, float a0, float b0, float a1, float b1,
+                                             bool inside) {
+  if (!inside) return 0u;
+  float y0 = fmaf(__uint_as_float(r0 << 16), a0, b0), y1 = fmaf(__uint_as_float(r1 << 16), a1, b1);
+  if (kSilu) {
+    y0 = fmaf(y0, tanh_approx(y0), y0);
+    y1 = fmaf(y1, tanh_approx(y1), y1);
+  }
+  return pack_bf16x2(y0, y1);
+}
+
+// A thread's raw x of one run item: channels 2 lane and 2 lane + 1 of the chunk.
+struct RunRaw {
+  uint4 c0, c1;
+};
+
+__device__ __forceinline__ void load_item(const HaloTile& t, int k, RunRaw& raw) {
+  int r, v;
+  run_item(k, r, v);
+  const int c = 2 * (threadIdx.x % 32);
+  raw.c0 = load_run(t, c, r, v);
+  raw.c1 = load_run(t, c + 1, r, v);
+}
+
+// Normalise run item k into the activation at pixels (r, 1 + 8 v + j): one
+// 4-byte store of the channel pair a pixel.
+template <bool kSilu>
+__device__ __forceinline__ void store_item(bf16* act, const HaloTile& t, const float* sa, const float* sb, int c0,
+                                           int k, const RunRaw& raw) {
+  int r, v;
+  run_item(k, r, v);
+  const int cl = 2 * (threadIdx.x % 32), c = c0 + cl;
+  const float a0 = sa[c], b0 = sb[c], a1 = sa[c + 1], b1 = sb[c + 1];
+  const int h = t.h0 - 1 + r, w = t.w0 + 8 * v;
+  const bool row_in = h >= 0 && h < t.H;
+  const uint32_t* e0 = reinterpret_cast<const uint32_t*>(&raw.c0);
+  const uint32_t* e1 = reinterpret_cast<const uint32_t*>(&raw.c1);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(act + act_index(r * HALO_W + 1 + 8 * v, cl));
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t x0 = j % 2 ? e0[j / 2] >> 16 : e0[j / 2] & 0xffffu;
+    const uint32_t x1 = j % 2 ? e1[j / 2] >> 16 : e1[j / 2] & 0xffffu;
+    dst[4 * j] = act_pair<kSilu>(x0, x1, a0, b0, a1, b1, row_in && w + j < t.W);
+  }
+}
+
+__device__ __forceinline__ void load_edges(const HaloTile& t, uint32_t (&edge)[EDGE_ITEMS]) {
+  const int c = 2 * (threadIdx.x % 32);
+#pragma unroll
+  for (int k = 0; k < EDGE_ITEMS; ++k) {
+    int r, side;
+    edge[k] = 0;
+    if (edge_item(k, r, side)) edge[k] = load_edge(t, c, r, side) | static_cast<uint32_t>(load_edge(t, c + 1, r, side)) << 16;
+  }
+}
+
+template <bool kSilu>
+__device__ __forceinline__ void store_edges(bf16* act, const HaloTile& t, const float* sa, const float* sb, int c0,
+                                            const uint32_t (&edge)[EDGE_ITEMS]) {
+  const int cl = 2 * (threadIdx.x % 32), c = c0 + cl;
+#pragma unroll
+  for (int k = 0; k < EDGE_ITEMS; ++k) {
+    int r, side;
+    if (!edge_item(k, r, side)) continue;
+    const int h = t.h0 - 1 + r, w = side ? t.w0 + TW : t.w0 - 1;
+    const bool inside = h >= 0 && h < t.H && w >= 0 && w < t.W;
+    *reinterpret_cast<uint32_t*>(act + act_index(r * HALO_W + (side ? HALO_W - 1 : 0), cl)) =
+        act_pair<kSilu>(edge[k] & 0xffffu, edge[k] >> 16, sa[c], sb[c], sa[c + 1], sb[c + 1], inside);
+  }
+}
+
+template <bool kSilu>
+__global__ void __launch_bounds__(THREADS, 1)
+gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ gn_w,
+                     const float* __restrict__ gn_b, const bf16* __restrict__ wk, const float* __restrict__ bias,
+                     bf16* __restrict__ out, int C, int Cout, int H, int W, int groups, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  // the ring's slabs must sit on the 1024-byte swizzle atom
+  const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
+  unsigned char* ring = smem;
+  bf16* act = reinterpret_cast<bf16*>(smem + SMEM_ACT);
+  float* sa = reinterpret_cast<float*>(smem + SMEM_AB);
+  float* sb = sa + C;
+  float* sbias = sb + C;
+  const uint32_t ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  const uint32_t act_addr = static_cast<uint32_t>(__cvta_generic_to_shared(act));
+
+  const int b = blockIdx.z, n0 = blockIdx.y * BN;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int h0 = blockIdx.x / tiles_w * TH, w0 = blockIdx.x % tiles_w * TW;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const HaloTile tile{x + static_cast<int64_t>(b) * C * HW, HW, H, W, h0, w0, W % 8 == 0};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, wi = warp % 4;
+  const int nchunks = C / BKC, total = nchunks * TAPS;
+
+  // prologue: the first slabs in flight, the fold, then chunk 0's activation
+  const SlabLoader slabs(wk, C, Cout, n0);
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < total) slabs.load(ring + s * SLAB, s / TAPS, s % TAPS, C);
+    cp_async_commit();
+  }
+  for (int n = threadIdx.x; n < BN; n += THREADS) sbias[n] = n0 + n < Cout ? bias[n0 + n] : 0.f;
+  fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps, sa, sb,
+                       kSilu ? 0.5f : 1.f);
+  RunRaw raw[2];
+  uint32_t edge[EDGE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RUN_ITEMS; ++k) {
+    load_item(tile, k, raw[0]);
+    store_item<kSilu>(act, tile, sa, sb, 0, k, raw[0]);
+  }
+  load_edges(tile, edge);
+  store_edges<kSilu>(act, tile, sa, sb, 0, edge);
+
+  float acc[2][64];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+  fence_operands(acc[0]);
+  fence_operands(acc[1]);
+
+  for (int i = 0; i < nchunks; ++i) {
+    const bool more = i + 1 < nchunks;
+    const uint32_t cur = act_addr + (i & 1) * ACT_BYTES;
+    bf16* nxt = act + ((i + 1) & 1) * (ACT_BYTES / 2);
+    const int c_next = (i + 1) * BKC;
+    const HaloTile next{tile.xb + static_cast<int64_t>(c_next) * HW, HW, H, W, h0, w0, tile.aligned};
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) {
+      const int s = i * TAPS + t;
+      cp_async_wait<AHEAD - 1>();  // slab s has landed (this thread's part)
+      fence_proxy_async();         // ... and so have this thread's activation stores
+      __syncthreads();             // everyone's; slab s - 2's products are done, its slot is free
+      if (s + AHEAD < total) {
+        const int ahead_tap = (t + AHEAD) % TAPS, ahead_chunk = (t + AHEAD) / TAPS;  // t is unrolled
+        slabs.load(ring + (s + AHEAD) % STAGES * SLAB, i + ahead_chunk, ahead_tap, C);
+      }
+      cp_async_commit();
+      const int dy = t / 3, dx = t % 3;
+      const uint32_t slab = ring_addr + (s % STAGES) * SLAB;
+      fence_operands(acc[0]);
+      fence_operands(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKC / 16; ++kk) {
+        const uint64_t desc_b = sw128_desc(slab + kk * 32);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // the warpgroup's tile row 2 wg + j, shifted by the tap; channels 16 kk ..
+          const int p0 = (2 * wg + j + dy) * HALO_W + dx;
+          wgmma_ss(acc[j], act_desc(cur + (2 * kk * HALO_PAD + p0) * 16), desc_b);
+        }
+      }
+      wgmma_commit();
+      // while the tap's products run, chunk i + 1's activation: run item
+      // t - 1 stored into the other buffer (chunk i - 1's, whose products
+      // ended before tap 1's barrier), item t + 1 loaded (items 0 and 1 at
+      // tap 0); the edge columns loaded at tap 5 and stored at tap 7
+      if (more) {
+        if (t == 0) {
+          load_item(next, 0, raw[0]);
+          load_item(next, 1, raw[1]);
+        }
+        if (t >= 1 && t <= RUN_ITEMS) store_item<kSilu>(nxt, next, sa, sb, c_next, t - 1, raw[(t - 1) % 2]);
+        if (t >= 1 && t + 1 < RUN_ITEMS) load_item(next, t + 1, raw[(t + 1) % 2]);
+        if (t == RUN_ITEMS - 1) load_edges(next, edge);
+        if (t == RUN_ITEMS + 1) store_edges<kSilu>(nxt, next, sa, sb, c_next, edge);
+      }
+      wgmma_wait<1>();
+      fence_operands(acc[0]);
+      fence_operands(acc[1]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc[0]);
+  fence_operands(acc[1]);
+  __syncthreads();  // every product done: the activation buffers take the output tile
+
+  // accumulator (m64 block j, n8 block q, e): tile row 2 wg + j, column
+  // 16 wi + lane / 4 (+8 for e >= 2), channel 8 q + 2 (lane % 4) + e % 2
+  bf16* so = act;  // [BN][LDO]: channel rows, the tile's 256 pixels row-major
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int m = (2 * wg + j) * TW + 16 * wi + g;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int n = 8 * q + 2 * tq;
+      const float b0 = sbias[n], b1 = sbias[n + 1];
+      so[n * LDO + m] = __float2bfloat16(acc[j][4 * q] + b0);
+      so[(n + 1) * LDO + m] = __float2bfloat16(acc[j][4 * q + 1] + b1);
+      so[n * LDO + m + 8] = __float2bfloat16(acc[j][4 * q + 2] + b0);
+      so[(n + 1) * LDO + m + 8] = __float2bfloat16(acc[j][4 * q + 3] + b1);
+    }
+  }
+  __syncthreads();
+  bf16* ob = out + static_cast<int64_t>(b) * Cout * HW;
+#pragma unroll 4
+  for (int it = 0; it < BN * TH * VECS / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
+    const int n = idx / (TH * VECS), r = idx % (TH * VECS) / VECS, v = idx % VECS;
+    const int co = n0 + n, h = h0 + r, w = w0 + 8 * v;
+    if (co >= Cout || h >= H || w >= W) continue;
+    const bf16* src = so + n * LDO + r * TW + 8 * v;
+    bf16* dst = ob + co * HW + static_cast<int64_t>(h) * W + w;
+    if (tile.aligned) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && w + e < W; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+template <bool kSilu>
+int launch_bf16(const void* x, const float* stats, const float* gn_w, const float* gn_b, const void* wk,
+                const float* bias, void* out, int B, int C, int Cout, int H, int W, int groups, float eps,
+                cudaStream_t stream) {
+  auto kernel = gn_conv_wgmma_kernel<kSilu>;
+  const int bytes = smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles_hw = static_cast<int64_t>((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  dim3 grid(static_cast<unsigned>(tiles_hw), (Cout + BN - 1) / BN, B);
+  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const bf16*>(x), stats, gn_w, gn_b,
+                                           static_cast<const bf16*>(wk), bias, static_cast<bf16*>(out), C, Cout, H,
+                                           W, groups, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hop
+
+// ---- v1 in fp32, and v2: the `conv_tile` body ----
+
 template <typename T, bool kSilu>
 __global__ void __launch_bounds__(THREADS, kBlocksPerSm<T>)
-gn_conv_kernel(const T* __restrict__ x, const float* __restrict__ ab, const T* __restrict__ wk,
-               const float* __restrict__ bias, T* __restrict__ out, int C, int Cout, int H, int W) {
+gn_conv_kernel(const T* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ gn_w,
+               const float* __restrict__ gn_b, const T* __restrict__ wk, const float* __restrict__ bias,
+               T* __restrict__ out, int C, int Cout, int H, int W, int groups, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* sa = reinterpret_cast<float*>(smem + ConvSmem<T>::tile_bytes);
   float* sb = sa + C;
   const int b = blockIdx.z;
   const int64_t HW = static_cast<int64_t>(H) * W;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    sa[c] = ab[static_cast<int64_t>(b) * 2 * C + c];
-    sb[c] = ab[static_cast<int64_t>(b) * 2 * C + C + c];
-  }
-  __syncthreads();
+  fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps, sa, sb);
   const int tiles_w = (W + TW - 1) / TW;
   conv_tile<T, kSilu>(x + b * C * HW, sa, sb, wk, bias, out + b * Cout * HW, C, Cout, H, W,
                       blockIdx.x / tiles_w * TH, blockIdx.x % tiles_w * TW, blockIdx.y * BN, smem);
@@ -341,31 +786,16 @@ gn_conv_v2_kernel(const T* __restrict__ x, const float* __restrict__ gn_w, const
   cg::this_grid().sync();
 
   // phase 2: fold the groups of the tile's image into a, b (whenever the
-  // image changes), then v1's conv body
+  // image changes; L2 reads of sums other blocks wrote before the barrier),
+  // then the conv body
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles_hw = (H + TH - 1) / TH * tiles_w;
   const int per_image = tiles_hw * ((Cout + BN - 1) / BN);
-  const int gs = C / groups;
-  const float count = static_cast<float>(HW * gs);
   int folded = -1;
   for (int t = blockIdx.x; t < B * per_image; t += gridDim.x) {
     const int b = t / per_image, rem = t % per_image;
     if (b != folded) {
-      const float* st = stats + static_cast<int64_t>(b) * 2 * C;
-      for (int c = threadIdx.x; c < C; c += THREADS) {
-        const int g0 = c / gs * gs;
-        float gsum = 0.f, gsq = 0.f;
-        for (int j = 0; j < gs; ++j) {  // L2 reads: written by other blocks before the barrier
-          gsum += __ldcg(st + g0 + j);
-          gsq += __ldcg(st + C + g0 + j);
-        }
-        const float mean = gsum / count;
-        const float var = fmaxf(gsq / count - mean * mean, 0.f);
-        const float a = rsqrtf(var + eps) * gn_w[c];
-        sa[c] = a;
-        sb[c] = gn_b[c] - mean * a;
-      }
-      __syncthreads();
+      fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps, sa, sb);
       folded = b;
     }
     const int pix = rem % tiles_hw;
@@ -374,17 +804,19 @@ gn_conv_v2_kernel(const T* __restrict__ x, const float* __restrict__ gn_w, const
   }
 }
 
-template <typename T, bool kSilu>
-int launch_v1(const void* x, const float* ab, const void* wk, const float* bias, void* out, int B, int C,
-              int Cout, int H, int W, cudaStream_t stream) {
-  auto kernel = gn_conv_kernel<T, kSilu>;
-  const int bytes = smem_bytes<T>(C);
+template <bool kSilu>
+int launch_v1_fp32(const void* x, const float* stats, const float* gn_w, const float* gn_b, const void* wk,
+                   const float* bias, void* out, int B, int C, int Cout, int H, int W, int groups, float eps,
+                   cudaStream_t stream) {
+  auto kernel = gn_conv_kernel<float, kSilu>;
+  const int bytes = smem_bytes<float>(C);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles_hw = static_cast<int64_t>((H + TH - 1) / TH) * ((W + TW - 1) / TW);
   dim3 grid(static_cast<unsigned>(tiles_hw), (Cout + BN - 1) / BN, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(x), ab, static_cast<const T*>(wk), bias,
-                                           static_cast<T*>(out), C, Cout, H, W);
+  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const float*>(x), stats, gn_w, gn_b,
+                                           static_cast<const float*>(wk), bias, static_cast<float*>(out), C, Cout,
+                                           H, W, groups, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,28 +858,31 @@ int launch_v2(const void* x, const float* gn_w, const float* gn_b, const void* w
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, wk and out); silu: 0 or 1. x:
-// contiguous [B, C, H, W]; ab: contiguous fp32 [B, 2, C] (a, then b); wk:
-// contiguous [Cout, 3, 3, C]; bias: fp32 [Cout]; out: contiguous
-// [B, Cout, H, W]. C must be a multiple of 32. Returns 0, a cudaError_t from
-// the launch, or -1 for unsupported arguments. Launches on `stream` and does
-// not synchronise.
-int e2eft_gn_silu_conv3x3(const void* x, const float* ab, const void* wk, const float* bias, void* out,
-                          int dtype, int silu, int B, int C, int Cout, int H, int W, void* stream) {
+// v1. dtype: 0 = float32, 1 = bfloat16 (x, wk and out); silu: 0 or 1. x:
+// contiguous [B, C, H, W]; stats: contiguous fp32 [B, 2, C] (sum x, then sum
+// x^2 over H * W, from e2eft_gn_channel_stats); gn_w, gn_b: the GroupNorm's
+// fp32 [C]; wk: contiguous [Cout, 3, 3, C]; bias: fp32 [Cout]; out:
+// contiguous [B, Cout, H, W]. C must be a multiple of 64 and of `groups`.
+// Returns 0, a cudaError_t from the launch, or -1 for unsupported arguments.
+// Launches on `stream` and does not synchronise.
+int e2eft_gn_silu_conv3x3(const void* x, const float* stats, const float* gn_w, const float* gn_b, const void* wk,
+                          const float* bias, void* out, int dtype, int silu, int B, int C, int Cout, int H, int W,
+                          int groups, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C % BK != 0) return -1;
-  if (dtype == 0 && silu) return launch_v1<float, true>(x, ab, wk, bias, out, B, C, Cout, H, W, st);
-  if (dtype == 0) return launch_v1<float, false>(x, ab, wk, bias, out, B, C, Cout, H, W, st);
-  if (dtype == 1 && silu) return launch_v1<bf16, true>(x, ab, wk, bias, out, B, C, Cout, H, W, st);
-  if (dtype == 1) return launch_v1<bf16, false>(x, ab, wk, bias, out, B, C, Cout, H, W, st);
+  if (C % hop::BKC != 0 || groups < 1 || C % groups != 0) return -1;
+  if (dtype == 0 && silu) return launch_v1_fp32<true>(x, stats, gn_w, gn_b, wk, bias, out, B, C, Cout, H, W, groups, eps, st);
+  if (dtype == 0) return launch_v1_fp32<false>(x, stats, gn_w, gn_b, wk, bias, out, B, C, Cout, H, W, groups, eps, st);
+  if (dtype == 1 && silu)
+    return hop::launch_bf16<true>(x, stats, gn_w, gn_b, wk, bias, out, B, C, Cout, H, W, groups, eps, st);
+  if (dtype == 1)
+    return hop::launch_bf16<false>(x, stats, gn_w, gn_b, wk, bias, out, B, C, Cout, H, W, groups, eps, st);
   return -1;
 }
 
-// v2: as e2eft_gn_silu_conv3x3, from the GroupNorm's fp32 weight and bias
-// [C] instead of ab; `stats` is fp32 scratch of [B, 2, C] that the kernel
-// overwrites. C must be a multiple of 32 and of `groups`. Returns as above,
-// and -2 when the device cannot launch cooperatively, -3 when one block does
-// not fit on an SM.
+// v2: as e2eft_gn_silu_conv3x3, from x alone (no statistics argument);
+// `stats` is fp32 scratch of [B, 2, C] that the kernel overwrites. C must be
+// a multiple of 32 and of `groups`. Returns as above, and -2 when the device
+// cannot launch cooperatively, -3 when one block does not fit on an SM.
 int e2eft_gn_silu_conv3x3_v2(const void* x, const float* gn_w, const float* gn_b, const void* wk,
                              const float* bias, void* out, float* stats, int dtype, int silu, int B, int C,
                              int Cout, int H, int W, int groups, float eps, void* stream) {

@@ -1,6 +1,7 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for `sm_90a` (Hopper), one `nvcc` per
+Every `csrc/*.cu` file is compiled for `sm_90a` (Hopper: `wgmma` needs the
+`a`), one `nvcc` per
 source, all started together, and the objects are linked into one shared
 library with a plain C interface. The library goes into `_build/<hash>/`
 beside the package (listed in `.gitignore`), keyed by a hash of the sources,
@@ -113,8 +114,8 @@ def load_library() -> ctypes.CDLL:
         "e2eft_flash_attention_bwd_dq": [ptr] * 7 + flash,  # q, k, v, dO, lse, delta, dq
         "e2eft_flash_attention_bwd_dkv": [ptr] * 8 + flash,  # q, k, v, dO, lse, delta, dk, dv
         "e2eft_gn_channel_stats": [ptr, ptr, i32, i32, i32, i64, ptr],  # x, out, dtype, B, C, n
-        # x, ab, w, bias, out, dtype, silu, B, C, Cout, H, W
-        "e2eft_gn_silu_conv3x3": [ptr] * 5 + [i32] * 7 + [ptr],
+        # x, stats, gn weight, gn bias, w, bias, out, dtype, silu, B, C, Cout, H, W, groups, eps
+        "e2eft_gn_silu_conv3x3": [ptr] * 7 + [i32] * 8 + [f32, ptr],
         # x, gn weight, gn bias, w, bias, out, stats, dtype, silu, B, C, Cout, H, W, groups, eps
         "e2eft_gn_silu_conv3x3_v2": [ptr] * 7 + [i32] * 8 + [f32, ptr],
     }

@@ -8,11 +8,16 @@ conv weight OIHW, as the port's modules hold them.
 Kernels (CUDA C++ for sm_90a, see the sources' header notes for their design):
 
 - v1 (the default): `kernels/groupnorm.py::channel_stats` (`csrc/groupnorm.cu`,
-  replacing `_stats_kernel`), then `fold_stats` in plain torch, then
-  `csrc/gn_conv.cu`'s conv kernel (replacing `_conv_kernel`).
+  replacing `_stats_kernel`), then `csrc/gn_conv.cu`'s conv kernel (replacing
+  `_conv_kernel`), which folds the raw sums into the GroupNorm's a, b in its
+  prologue: two launches a pair, plus one copy that lays the weight out as
+  [Cout, 3, 3, C] in the compute dtype. In bf16 the conv is a `wgmma` body
+  whose tiles `BF16_TILE` mirrors; fp32 keeps the scalar `conv_tile` body.
 - v2 (`E2EFT_GNCONV_IMPL=v2`, read at each call): `csrc/gn_conv.cu`'s
   single cooperative launch, statistics + fold + conv (replacing
   `_conv_kernel_v2`).
+
+`fold_stats` is the fold in plain torch, the kernels' formula, for the tests.
 
 `gn_silu_conv3x3` dispatches by device and a shape-only envelope: a CPU tensor
 takes the plain composite `gn_conv_reference`; a CUDA tensor inside the
@@ -46,6 +51,16 @@ from diffusion_e2e_ft_tpu_torch.kernels.groupnorm import channel_stats, check_ke
 # counts in `groupnorm.launches`.
 launches = {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_v2": 0}
 IMPLS = ("v1", "v2")
+# The bf16 v1 kernel's tiles (`csrc/gn_conv.cu`, namespace `hop`): TH x TW output pixels and BN output
+# channels a block, BKC input channels a chunk, a ring of STAGES weight slabs with AHEAD in flight; a test parses
+# the source to keep them equal.
+BF16_TILE = {"TH": 4, "TW": 64, "BN": 128, "BKC": 64, "STAGES": 5, "AHEAD": 3}
+
+
+def conv_blocks(b: int, cout: int, h: int, w: int) -> int:
+    """Blocks of one bf16 v1 launch (one a tile of TH x TW pixels and BN channels), one resident an SM."""
+    t = BF16_TILE
+    return b * -(-h // t["TH"]) * -(-w // t["TW"]) * -(-cout // t["BN"])
 
 
 def reset_launches() -> None:
@@ -112,7 +127,8 @@ def gn_conv_kernel(
 ) -> torch.Tensor:
     """`gn_conv_reference` (without the residual) with the CUDA kernels, v1 or
     v2 as `impl()` says. x: contiguous fp32 or bf16 [B, C, H, W] on the card;
-    weight [Cout, C, 3, 3], cast to x's dtype here."""
+    weight [Cout, C, 3, 3], laid out and cast to x's dtype here; the
+    GroupNorm's affine and the conv bias go to the kernels in fp32."""
     form = impl()
     check_kernel_operand("gn_silu_conv3x3", "x", x)
     if x.ndim != 4 or x.numel() == 0:
@@ -124,25 +140,25 @@ def gn_conv_kernel(
                          "are outside the kernels' envelope")
     if b > 65535:
         raise ValueError(f"gn_silu_conv3x3: batch {b} exceeds the kernel's grid")
-    # [Cout, 3, 3, C] in the compute dtype: each output channel's and tap's run of C contiguous
-    wk = weight.detach().to(x.dtype).permute(0, 2, 3, 1).contiguous()
+    for name, t in (("GroupNorm weight", gn_weight), ("GroupNorm bias", gn_bias), ("weight", weight),
+                    ("conv bias", conv_bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"gn_silu_conv3x3: {name} is on {t.device}, x on {x.device}")
+    # [Cout, 3, 3, C] in the compute dtype, in one copy: each output channel's and tap's run of C contiguous
+    wk = torch.empty((cout, 3, 3, c), dtype=x.dtype, device=x.device)
+    wk.copy_(weight.detach().permute(0, 2, 3, 1))
+    gw, gb = (t.detach().float().contiguous() for t in (gn_weight, gn_bias))
     bias = (conv_bias.detach().float().contiguous() if conv_bias is not None
             else torch.zeros(cout, dtype=torch.float32, device=x.device))
-    for name, t in (("weight", wk), ("conv bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"gn_silu_conv3x3: {name} is on {t.device}, x on {x.device}")
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-    head = (x.data_ptr(),)
-    tail = (wk.data_ptr(), bias.data_ptr(), out.data_ptr())
-    sizes = (_build.DTYPE_CODES[x.dtype], int(silu), b, c, cout, h, w)
+    params = (gw.data_ptr(), gb.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr())
+    sizes = (_build.DTYPE_CODES[x.dtype], int(silu), b, c, cout, h, w, groups, float(eps))
     if form == "v1":
-        ab = fold_stats(channel_stats(x), gn_weight, gn_bias, groups, eps, h * w)
-        _build.launch(launches, "gn_silu_conv3x3", x, *head, ab.data_ptr(), *tail, *sizes)
+        stats = channel_stats(x)
+        _build.launch(launches, "gn_silu_conv3x3", x, x.data_ptr(), stats.data_ptr(), *params, *sizes)
     else:
-        gw, gb = (t.detach().float().contiguous() for t in (gn_weight, gn_bias))
         stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-        _build.launch(launches, "gn_silu_conv3x3_v2", x, *head, gw.data_ptr(), gb.data_ptr(), *tail,
-                      stats.data_ptr(), *sizes, groups, float(eps))
+        _build.launch(launches, "gn_silu_conv3x3_v2", x, x.data_ptr(), *params, stats.data_ptr(), *sizes)
     return out
 
 

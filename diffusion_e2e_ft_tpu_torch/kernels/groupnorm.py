@@ -10,7 +10,9 @@ both devices, as the JAX package keeps its statistics kernel opt-in there.
 `channel_stats` launches `csrc/groupnorm.cu`, which replaces the TPU kernel
 `::_stats_kernel` (launched by `_channel_stats`): the per-channel sums alone,
 which feed the fused GroupNorm+SiLU -> conv kernel (`kernels/gn_conv.py`).
-`channel_stats_reference` is its plain version.
+`channel_stats_reference` is its plain version. The kernel splits a long
+row over a cluster of `stats_parts(B * C, N)` blocks and adds their sums in
+rank order; `STATS_SPLIT` mirrors its constants (a test parses the source).
 """
 
 from __future__ import annotations
@@ -22,6 +24,19 @@ from diffusion_e2e_ft_tpu_torch.kernels import _build
 
 # Kernel launches since the last `reset_launches()`.
 launches = {"gn_channel_stats": 0}
+# `csrc/groupnorm.cu`: blocks a (b, c) row at most, values a block at least before a row is split further,
+# and resident blocks an SM
+STATS_SPLIT = {"kStatsMaxParts": 8, "kStatsMinSegment": 16384, "kStatsBlocksPerSm": 8}
+
+
+def stats_parts(rows: int, n: int, sms: int = 132) -> int:
+    """Blocks (a cluster) that reduce one of `rows` rows of n values, on a
+    card of `sms` SMs (132: the H100 SXM): the kernel's rule."""
+    parts, wave = 1, sms * STATS_SPLIT["kStatsBlocksPerSm"]
+    while (parts < STATS_SPLIT["kStatsMaxParts"] and n // (2 * parts) >= STATS_SPLIT["kStatsMinSegment"]
+           and rows * parts * 2 <= wave):
+        parts *= 2
+    return parts
 
 
 def reset_launches() -> None:
