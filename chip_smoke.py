@@ -26,9 +26,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4b. the GroupNorm kernels: the statistics kernel and the fused
    GroupNorm+SiLU -> conv3x3 kernels, v1 (statistics, fold, conv) and v2 (one
    cooperative launch), against their plain versions at every GN -> conv
-   shape of the 480x640 bs-2 frozen VAE and ragged ones, fp32 and bf16, with
-   a non-zero GroupNorm bias, bounded as the backward kernels, and their
-   times beside the plain versions';
+   shape of the 480x640 bs-2 frozen VAE, ragged ones and one at C = 64 (where
+   v2 cuts each row into 8 parts), fp32 and bf16, with a non-zero GroupNorm
+   bias, bounded as the backward kernels; the statistics and v2 each twice
+   for identical bits; and their times (events around one call and around
+   calls back to back) beside the plain versions' and the bound;
 5. end-to-end parity, fp32 with TF32 off: a full-width SD2 Marigold pipeline
    with seeded random weights runs one 256x256 image, depth and normals, on
    the CPU (plain path) and on the GPU (kernel path, 12 kernel launches each);
@@ -51,9 +53,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step, ms/step, img/s and peak device memory; then two micro-steps with
    gradient accumulation 2, where only the second moves the weights; then the
    unfused VAE (`fused_vae_kernels=False`) and the fused one, a few steps
-   each, in turns (unfused, fused, fused, unfused), for the A/B; then one
-   step with the single-launch v2 kernel (`E2EFT_GNCONV_IMPL=v2`), whose loss
-   matches v1's;
+   each, in turns (unfused, fused, fused, unfused), for the A/B; then a few
+   steps with the single-launch v2 kernel (`E2EFT_GNCONV_IMPL=v2`), whose
+   first loss matches v1's, with their ms beside v1's;
 9. GeoWizard's attention kernels: the forward at d = 40, 80 and 160 and the
    heads-per-block forward (hp 2, 4, 8 at d = 40) against the plain version
    (head by head in fp32) at the joint-attention shapes of 768x768 and
@@ -212,6 +214,7 @@ GN_CASES = [
     (1, 128, 37, 53, 128),  # ragged: 1961 pixels = 15 * 128 + 41; odd rows for the 16-byte vectors
     (2, 256, 1, 77, 128),  # H = 1: every tap but the middle row is padding
     (3, 128, 9, 9, 96),  # Cout ragged for the 64-wide channel tiles
+    (1, 64, 240, 320, 64),  # C = 64, the kernels' own limit (the port's envelope is C % 128): v2 splits its rows
 ]
 GN_BOUND = {torch.float32: FP32_BOUND, torch.bfloat16: BF16_BOUND}  # max|d| / max|plain fp32|
 GN_TRAIN_LAUNCHES = dict(zip(GN_CASES[:8], (9, 1, 1, 8, 1, 1, 9, 18)))  # launches of each shape per train step
@@ -503,6 +506,39 @@ def gn_conv_only(gc, gn, x, gw, gb, groups, eps, weight, bias, silu):
     return lambda: _build.launch(counts, "gn_silu_conv3x3", x, *args)
 
 
+def gn_conv_v2_only(gc, x, gw, gb, groups, eps, weight, bias, silu):
+    """The v2 kernel alone (weight layout, output and the statistics scratch
+    made beforehand), as the wrapper launches it; counted in a dict of its own."""
+    from diffusion_e2e_ft_tpu_torch.kernels import _build
+
+    b, c, h, w = x.shape
+    cout = weight.shape[0]
+    parts = gc.v2_plan(b, c, h, w, cout, torch.cuda.get_device_properties(x.device).multi_processor_count,
+                       x.dtype).parts
+    stats = torch.empty((b, 2, c, parts), dtype=torch.float32, device=x.device)
+    wk = weight.permute(0, 2, 3, 1).contiguous()
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    counts = {"gn_silu_conv3x3_v2": 0}
+    args = (x.data_ptr(), gw.data_ptr(), gb.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), parts, _build.DTYPE_CODES[x.dtype], int(silu), b, c, cout, h, w, groups, float(eps))
+    return lambda: _build.launch(counts, "gn_silu_conv3x3_v2", x, *args)
+
+
+def batch_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: CUDA events around `reps` calls launched back
+    to back, over `reps` (the host runs ahead of the card when a call's
+    kernels take longer than its launch, so no host gap is counted)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_kernels(fn, reps: int = 1) -> list:
     """The CUDA kernels of `reps` calls of `fn` (torch.profiler), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
@@ -514,12 +550,6 @@ def device_kernels(fn, reps: int = 1) -> list:
             fn()
         torch.cuda.synchronize()
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Summed kernel time of one call on the card (profiler), without the
-    host's launch gaps, which CUDA events around one small call include."""
-    return sum(e.device_time for e in device_kernels(fn, reps)) / 1e3 / reps
 
 
 def phase_gn_kernels() -> dict:
@@ -541,6 +571,7 @@ def phase_gn_kernels() -> dict:
     names = ("gn_channel_stats", "gn_silu_conv3x3", "gn_silu_conv3x3_v2")
     worst = dict.fromkeys(names, 0.0)
     rows: dict = {}
+    parts_seen: set = set()
     for dtype in (torch.float32, torch.bfloat16):
         bound = GN_BOUND[dtype]
         for case in GN_CASES:
@@ -557,9 +588,13 @@ def phase_gn_kernels() -> dict:
             for form in ("v1", "v2"):
                 os.environ["E2EFT_GNCONV_IMPL"] = form
                 outs[form] = gc.gn_conv_kernel(x, *gn_args)
+            v2_again = gc.gn_conv_kernel(x, *gn_args)
             os.environ.pop("E2EFT_GNCONV_IMPL")
             torch.cuda.synchronize()
             check(torch.equal(stats, again), f"gn_channel_stats: two calls differ at {case} {dtype}")
+            check(torch.equal(outs["v2"], v2_again), f"gn_silu_conv3x3_v2: two calls differ at {case} {dtype}")
+            plan = gc.v2_plan(b, c, h, w, co, torch.cuda.get_device_properties(0).multi_processor_count, dtype)
+            parts_seen.add(plan.parts)
             want = gc.gn_conv_reference(x.float(), gw, gb, 32, 1e-6, weight.float(), bias, silu)
             errs = {"gn_channel_stats": rel_err(stats, want_stats), "gn_silu_conv3x3": rel_err(outs["v1"], want),
                     "gn_silu_conv3x3_v2": rel_err(outs["v2"], want)}
@@ -572,8 +607,9 @@ def phase_gn_kernels() -> dict:
             line = (f"[gn] {str(dtype):15s} B,C,H,W={case[:4]} -> {co}{'' if silu else ' (no SiLU)'}: "
                     "max|d|/max|plain| " + ", ".join(f"{n.replace('gn_', '')} {e[1]:.2e}" for n, e in errs.items())
                     + f" (bound {bound}), v2 vs v1 {rel_err(outs['v2'], outs['v1'].float())[1]:.2e}; "
-                    "statistics bit-identical over two calls")
-            del stats, again, want_stats, outs, want
+                    f"statistics and v2 ({plan.blocks} blocks, {plan.parts} parts a row, {plan.items} tiles) "
+                    "bit-identical over two calls")
+            del stats, again, want_stats, outs, want, v2_again
             if dtype == torch.bfloat16 and case in GN_TRAIN_LAUNCHES:
                 rows[case] = gn_times(gc, gn, x, gw, gb, weight, bias, silu)
                 line += "; " + rows[case].pop("text")
@@ -587,11 +623,12 @@ def phase_gn_kernels() -> dict:
     print(f"[gn] per train step ({sum(GN_TRAIN_LAUNCHES.values())} launches each, bf16), events: "
           + ", ".join(f"{n.replace('gn_', '')} {step_sum(n, 'ms'):.3f} ms (bound {step_sum(n, 'bound_ms'):.3f})"
                       for n in names)
-          + f"; group_norm -> silu -> conv2d {step_sum('gn_silu_conv3x3', 'library_ms'):.3f} ms; device: stats "
-          f"{step_sum('gn_channel_stats', 'device_ms'):.3f}, conv {step_sum('gn_silu_conv3x3', 'conv_device_ms'):.3f}, "
-          f"v1 pair {step_sum('gn_silu_conv3x3', 'device_ms'):.3f}, library "
-          f"{step_sum('gn_silu_conv3x3', 'library_device_ms'):.3f} ms; eager launches per v1 pair "
-          f"{rows[GN_CASES[0]]['eager_launches']}", flush=True)
+          + f"; group_norm -> silu -> conv2d {step_sum('gn_silu_conv3x3', 'library_ms'):.3f} ms; alone: stats "
+          f"{step_sum('gn_channel_stats', 'alone_ms'):.3f}, conv {step_sum('gn_silu_conv3x3', 'conv_alone_ms'):.3f}, "
+          f"v1 pair {step_sum('gn_silu_conv3x3', 'alone_ms'):.3f}, v2 {step_sum('gn_silu_conv3x3_v2', 'alone_ms'):.3f}, "
+          f"library {step_sum('gn_silu_conv3x3', 'library_alone_ms'):.3f} ms; eager launches per v1 pair "
+          f"{rows[GN_CASES[0]]['eager_launches']}, per v2 call {rows[GN_CASES[0]]['v2_launches']}", flush=True)
+    check(max(parts_seen) > 1, f"no case split v2's statistics rows: parts {parts_seen}")
     first = rows[GN_CASES[0]]
     return {n: {"max_abs_err": worst[n], **{k: first[n][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                                          "bound_by")},
@@ -601,8 +638,13 @@ def phase_gn_kernels() -> dict:
 
 def gn_times(gc, gn, x, gw, gb, weight, bias, silu) -> dict:
     """bf16 times at one shape: the statistics kernel, the v1 pair (statistics
-    + conv, as the wrapper runs them) and its conv kernel alone, v2, the plain
-    versions and the library calls, with each kernel's bound."""
+    + conv, as the wrapper runs them) and its conv kernel alone, v2 (the
+    wrapper's call, and the kernel alone), the plain versions and the library
+    calls, with each kernel's bound. Each as CUDA events around one call and,
+    for the card's time without host gaps, around calls launched back to
+    back ("alone", `batch_ms`); torch.profiler only counts the CUDA kernels
+    of a call, at the first shape (its per-call sums drop to zero after many
+    profiles in one process)."""
     b, c, h, w = x.shape
     co = weight.shape[0]
     gn_args = (gw, gb, 32, 1e-6, weight, bias, silu)
@@ -615,30 +657,36 @@ def gn_times(gc, gn, x, gw, gb, weight, bias, silu) -> dict:
            "library": lambda: F.conv2d(F.silu(F.group_norm(x, 32, gw.to(x.dtype), gb.to(x.dtype), 1e-6)),
                                        weight, bias.to(x.dtype), padding=1)}
     ev = {k: time_ms(f) for k, f in fns.items()}
-    dev = {k: device_ms(f) for k, f in fns.items()}
-    stats, v1, conv, library = ev["stats"], ev["v1"], ev["conv"], ev["library"]
+    alone = {k: batch_ms(f) for k, f in fns.items()}
+    first = (b, c, h, w, co) == GN_CASES[0]
     plain = time_ms(lambda: gc.gn_conv_reference(x, *gn_args))
     os.environ["E2EFT_GNCONV_IMPL"] = "v2"
-    v2 = time_ms(fns["v1"])
+    ev["v2"] = time_ms(fns["v1"])
+    v2_launches = len(device_kernels(fns["v1"])) if first else None
     os.environ.pop("E2EFT_GNCONV_IMPL")
+    alone["v2"] = batch_ms(gn_conv_v2_only(gc, x, *gn_args))
     row = {
-        "gn_channel_stats": {"shape": list(x.shape), "ms": stats, "device_ms": dev["stats"],
+        "gn_channel_stats": {"shape": list(x.shape), "ms": ev["stats"], "alone_ms": alone["stats"],
                              "plain_ms": time_ms(lambda: gn.channel_stats_reference(x)),
                              "library_ms": time_ms(lambda: torch.var_mean(x, dim=(2, 3))), **stats_bound},
-        "gn_silu_conv3x3": {"shape": list(x.shape) + [co], "ms": v1, "device_ms": dev["v1"], "conv_ms": conv,
-                            "conv_device_ms": dev["conv"], "plain_ms": plain, "library_ms": library,
-                            "library_device_ms": dev["library"], **conv_bound},
-        "gn_silu_conv3x3_v2": {"shape": list(x.shape) + [co], "ms": v2, "plain_ms": plain, "library_ms": library,
+        "gn_silu_conv3x3": {"shape": list(x.shape) + [co], "ms": ev["v1"], "alone_ms": alone["v1"],
+                            "conv_ms": ev["conv"], "conv_alone_ms": alone["conv"], "plain_ms": plain,
+                            "library_ms": ev["library"], "library_alone_ms": alone["library"], **conv_bound},
+        "gn_silu_conv3x3_v2": {"shape": list(x.shape) + [co], "ms": ev["v2"], "alone_ms": alone["v2"],
+                               "plain_ms": plain, "library_ms": ev["library"], "library_alone_ms": alone["library"],
                                **conv_bound},
     }
-    if (b, c, h, w, co) == GN_CASES[0]:
+    if first:
         row["eager_launches"] = len(device_kernels(fns["v1"]))
-    row["text"] = (f"ms (events / device): stats {stats:.4f} / {dev['stats']:.4f} (bound "
-                   f"{stats_bound['bound_ms']:.4f}, {stats_bound['bound_ms'] / dev['stats']:.2f} of it; var_mean "
-                   f"{row['gn_channel_stats']['library_ms']:.4f}), v1 {v1:.4f} / {dev['v1']:.4f} = conv {conv:.4f} / "
-                   f"{dev['conv']:.4f} ({flops / dev['conv'] / 1e9:.0f} TFLOP/s, {conv_bound['bound_ms'] / dev['conv']:.3f} "
-                   f"of the bound {conv_bound['bound_ms']:.4f}) + stats, v2 {v2:.4f}, library (3 calls) {library:.4f} / "
-                   f"{dev['library']:.4f}, plain {plain:.4f}")
+        row["v2_launches"] = v2_launches
+    row["text"] = (f"ms (events / alone): stats {ev['stats']:.4f} / {alone['stats']:.4f} (bound "
+                   f"{stats_bound['bound_ms']:.4f}, {stats_bound['bound_ms'] / alone['stats']:.2f} of it; var_mean "
+                   f"{row['gn_channel_stats']['library_ms']:.4f}), v1 pair {ev['v1']:.4f} / {alone['v1']:.4f} = conv "
+                   f"{ev['conv']:.4f} / {alone['conv']:.4f} ({flops / alone['conv'] / 1e9:.0f} TFLOP/s, "
+                   f"{conv_bound['bound_ms'] / alone['conv']:.3f} of the bound {conv_bound['bound_ms']:.4f}) + stats, "
+                   f"v2 {ev['v2']:.4f} / {alone['v2']:.4f} ({flops / alone['v2'] / 1e9:.0f} TFLOP/s, "
+                   f"{conv_bound['bound_ms'] / alone['v2']:.3f} of the bound), library (3 calls) {ev['library']:.4f} / "
+                   f"{alone['library']:.4f}, plain {plain:.4f}")
     return row
 
 
@@ -860,8 +908,8 @@ def timed_steps(trainer, state, batches) -> tuple:
 def phase_train(unet, vae, empty) -> dict:
     """The training main path: E2ETrainer with the default TrainConfig (fused
     VAE) + run_training at 480x640 bs 2, bf16 compute, fp32 masters; then
-    accumulation 2, the fused / unfused A/B and the v2 step. Returns the
-    kernel launches of the main run, and the v2 launches of the v2 step."""
+    accumulation 2, the fused / unfused A/B and the v2 steps. Returns the
+    kernel launches of the main run, and the v2 launches of the v2 steps."""
     from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
     from diffusion_e2e_ft_tpu_torch.training.loop import run_training
 
@@ -944,20 +992,23 @@ def phase_train(unet, vae, empty) -> dict:
         f"fused_vae_kernels={f} {statistics.median(v):.1f} ({2e3 / statistics.median(v):.2f} img/s)"
         for f, v in arms.items()), flush=True)
 
-    # one step with the single-launch v2 kernel, from the state v1's loss was taken at
+    # the single-launch v2 kernel: AB_STEPS steps from the state v1's loss was taken at
     trainer = E2ETrainer(config, unet, vae, empty, compute_dtype=torch.bfloat16)
     state = trainer.init_state()
     loss_v1 = float(trainer.value_and_grad(batches[0])[0])
     os.environ["E2EFT_GNCONV_IMPL"] = "v2"
     reset_launches()  # the v2 path's run starts here
-    state, ms, per_step, losses = timed_steps(trainer, state, batches[:1])
+    state, ms, per_step, losses = timed_steps(trainer, state, batches[:AB_STEPS])
     v2_launches = read_launches()  # ... and ends here
     os.environ.pop("E2EFT_GNCONV_IMPL")
     rel = abs(losses[0] - loss_v1) / abs(loss_v1)
-    print(f"[train-v2] E2EFT_GNCONV_IMPL=v2, one step: loss {losses[0]:.6f} vs v1 {loss_v1:.6f} (rel {rel:.2e}, "
-          f"bound {V2_LOSS_BOUND}), {ms[0]:.1f} ms; launches {per_step[0]}", flush=True)
-    check(per_step[0] == step_launches(UNET_SITES_480x640, "v2"), f"v2 step launches {per_step[0]}")
-    check(np.isfinite(losses[0]) and rel <= V2_LOSS_BOUND, f"v2 loss {losses[0]} vs v1 {loss_v1}")
+    print(f"[train-v2] E2EFT_GNCONV_IMPL=v2, {AB_STEPS} steps: first loss {losses[0]:.6f} vs v1 {loss_v1:.6f} "
+          f"(rel {rel:.2e}, bound {V2_LOSS_BOUND}); ms/step {[round(x, 1) for x in ms]}, median after the first "
+          f"{statistics.median(ms[1:]):.1f} vs v1 {statistics.median(arms[True]):.1f} (the A/B above); launches per "
+          f"step {per_step[0]}", flush=True)
+    want = step_launches(UNET_SITES_480x640, "v2")
+    check(all(s == want for s in per_step), f"v2 step launches {per_step}")
+    check(np.isfinite(losses).all() and rel <= V2_LOSS_BOUND, f"v2 losses {losses} vs v1 {loss_v1}")
     launches["gn_silu_conv3x3_v2"] = v2_launches["gn_silu_conv3x3_v2"]
     return launches
 

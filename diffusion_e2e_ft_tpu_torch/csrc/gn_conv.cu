@@ -15,18 +15,39 @@
 // _pallas_gn_conv_v2): the same output from raw x in one launch. The TPU
 // kernel carries the statistics across a sequential grid axis; on the GPU
 // the phase boundary is a grid-wide barrier, so v2 is a cooperative launch
-// of a persistent grid (as many blocks as fit on the card at once): phase 1
-// runs the statistics kernel's row reduction over the (b, c) rows into an
-// fp32 scratch buffer, cooperative_groups' grid.sync() separates the phases,
-// then each block folds the groups of its image into a, b in shared memory
-// and walks its conv tiles with `conv_tile` (below).
+// of a persistent grid, one block an SM (no more blocks than the larger
+// phase has items):
+// - phase 1 cuts each (b, c) row into `parts` segments and reduces each
+//   with one warp (`segment_partial` + a butterfly: no block barrier), into
+//   an fp32 scratch [B, 2, C, parts], one store a segment, no atomics.
+//   `v2_parts` takes the fewest parts whose B * C * parts items fill the
+//   grid's 8 warps a block in waves at least kV2FillPct% full, each segment
+//   at least kV2MinSegment values: on 132 SMs (1056 warps), 4 parts of the
+//   256 rows of [2,128,480,640], 2 of 512 rows, 1 of 1024. A block of 8
+//   warps is all an SM holds beside phase 2's shared memory, so each lane
+//   keeps kV2StatsUnroll = 8 16-byte loads in flight (32 KB an SM; ~6 a
+//   thread cover 3.35 TB/s at ~1 us of latency);
+// - __threadfence + cooperative_groups' grid.sync();
+// - phase 2 walks the (image, pixel tile, channel tile) items with a grid
+//   stride, the channel tile fastest, so the channel tiles of one pixel tile
+//   run side by side and read its halo from L2 after the first (the weights,
+//   at most 4.7 MB, stay in L2 throughout). At each new image the block
+//   folds the image's groups into a, b (`fold_parts`): the parts added in
+//   part order, read through L2 (`__ldcg`: the scratch was written by other
+//   blocks of this launch) into shared memory, then the groups from there.
+//   bf16 runs each item through the wgmma body below
+//   (`hop::wgmma_tile`, v1's body: a, b halved under SiLU), fp32 through
+//   `conv_tile`; between items every cp.async and wgmma group is drained and
+//   the block passes a barrier before the shared memory is reused.
+// Same input, same bits: the segments' sums, the parts and the products
+// are each added in one fixed order.
 //
 // Layout: x and out are NCHW, as the port's modules hold them; the weights
 // arrive as [Cout, 3, 3, C] (OHWI, rearranged and cast by the wrapper). The
 // conv is an implicit GEMM over one image: M = output pixels, N = Cout,
 // K = 9 taps x C.
 //
-// v1 in bf16 (`gn_conv_wgmma_kernel`, namespace `hop`). What bounds it on the
+// bf16, v1 and v2: the wgmma body (`hop::wgmma_tile`). What bounds it on the
 // H100: at C = Cout = 128 an output pixel costs 2 * 9 * 128 * 128 FLOPs
 // against ~2 * 128 bytes of x read and written, about 576 FLOPs per byte,
 // above the card's ~295: compute-bound on the tensor cores. The design:
@@ -57,29 +78,31 @@
 //   Dedicating a third warpgroup to the activation (warp specialisation)
 //   measured slower: one warp a scheduler could not hide its latencies.
 // - Weight restaging: each block streams all 9 * C * BN weights once for
-//   256 output pixels (the `conv_tile` body: for 128). At [2,128,480,640] -> 128 the
-//   launch moves 2400 blocks x 295 KB = 708 MB of weights from L2 into
-//   shared memory against 157 MB of x: 4.5x, half of the old 9x.
+//   256 output pixels. At [2,128,480,640] -> 128 the launch moves 2400 tiles
+//   x 295 KB = 708 MB of weights from L2 into shared memory against 157 MB
+//   of x: 4.5x.
 // - Waves: one block an SM (~190 KB of shared memory, 255 registers a
-//   thread). The 60x80 decoder layer (512 -> 512) is 240 blocks on 132 SMs,
-//   1.82 waves: the SMs are 91% busy over the launch, the second wave 82%
-//   (the `conv_tile` body: 320 blocks, 1.21 waves of two, 61%). BN = 64 there (480
-//   blocks, 3.6 waves, also 91%) measured slower: the halo transform is per
-//   block, so it doubles against the products; the tile stays the same at
+//   thread). The 60x80 decoder layer (512 -> 512) is 240 tiles on 132 SMs,
+//   1.82 waves: the SMs are 91% busy over the launch. BN = 64 there (480
+//   tiles, 3.6 waves, also 91%) measured slower: the halo transform is per
+//   tile, so it doubles against the products; the tile stays the same at
 //   every shape.
 // - Epilogue: the fp32 bias added to the accumulators, the tile staged
 //   through shared memory as bf16 [BN][256 pixels], and NCHW stored as
 //   16-byte runs along w (scalar at a ragged edge).
-// Ragged H, W and Cout are masked in the kernel; C must be a multiple of 64.
+// v1 launches one block a tile and folds in its prologue; v2 walks tiles in
+// a persistent block and folds at each new image. Ragged H, W and Cout are
+// masked in the body; C must be a multiple of 64.
 //
-// v1 in fp32 keeps the scalar body (`gn_conv_kernel`, `conv_tile` below),
-// exact to summation order (no TF32), with the same in-kernel fold. v2 keeps
-// the `conv_tile` body in both dtypes: an 8 x 16-pixel tile, BN = 128, its halo
-// normalised once per 32-channel chunk into shared memory, the nine taps'
-// weights copied with `cp.async`; bf16 by `ldmatrix` + `mma.sync` m16n8k16,
-// fp32 by scalar FMA; one shared-memory stage.
+// fp32, v1 and v2: the scalar body `conv_tile`, exact to summation order (no
+// TF32): an 8 x 16-pixel tile, BN = 128, its halo normalised once per
+// 32-channel chunk into shared memory (SiLU as y / (1 + exp(-y)), a and b
+// unhalved), the nine taps' weights copied with `cp.async`, products by
+// scalar FMA in k order; one shared-memory stage, one block an SM.
 
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "gn_common.cuh"
 #include "mma_common.cuh"
@@ -88,7 +111,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// ---- the `conv_tile` body (v1 in fp32, v2) ----
+// ---- fp32: the `conv_tile` body (v1 and v2) ----
 
 constexpr int TH = 8, TW = 16;                  // output tile: rows x columns of one image
 constexpr int BM = TH * TW;                     // 128 output pixels
@@ -98,111 +121,35 @@ constexpr int HALO_W = TW + 2, HALO = (TH + 2) * HALO_W;  // 180 halo pixels
 constexpr int THREADS = 256;                    // 8 warps: 4 (pixel rows) x 2 (channel halves)
 static_assert(BM == 4 * 32 && BN == 2 * 64 && TW == 16, "warp tiling: 2 tile rows x 64 channels a warp");
 
-template <typename T>
-struct ConvSmem {
-  // rows padded so that 8 consecutive rows fall in distinct bank groups
-  // (`ldmatrix` and the fp32 float4 reads are then conflict-free) and stay
-  // 16-byte aligned
-  static constexpr int LDK = std::is_same<T, bf16>::value ? BK + 8 : BK + 4;
-  static constexpr int LDC = BM + 4;  // C tile [BN][LDC] fp32, pixels contiguous
-  static constexpr int w_off = align_up(HALO * LDK * static_cast<int>(sizeof(T)), 128);
-  static constexpr int ab_bytes = w_off + 9 * BN * LDK * static_cast<int>(sizeof(T));
-  static constexpr int c_bytes = BN * LDC * 4;
-  // the C tile reuses the halo and weight tiles once the K loop is done
-  static constexpr int tile_bytes = align_up(ab_bytes > c_bytes ? ab_bytes : c_bytes, 128);
-};
+// Shared memory of one tile: the halo [HALO][LDK], then the nine taps'
+// weights [9 * BN][LDK], rows padded so that 8 consecutive rows fall in
+// distinct bank groups (the float4 reads are then conflict-free) and stay
+// 16-byte aligned; the C tile [BN][LDC] (pixels contiguous) reuses them once
+// the K loop is done.
+constexpr int LDK = BK + 4;
+constexpr int LDC = BM + 4;
+constexpr int W_OFF = align_up(HALO * LDK * 4, 128);
+constexpr int AB_BYTES = W_OFF + 9 * BN * LDK * 4;
+constexpr int C_BYTES = BN * LDC * 4;
+constexpr int TILE_BYTES = align_up(AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES, 128);
 
-// Resident blocks an SM: two in bf16 (~105 KB of shared memory each, and at
-// most 128 registers a thread); the fp32 tiles (~190 KB) leave room for one.
-template <typename T>
-constexpr int kBlocksPerSm = std::is_same<T, bf16>::value ? 2 : 1;
+// Dynamic shared memory: the tile, then a[C] and b[C] (~190 KB: one block an SM).
+int smem_bytes(int C) { return TILE_BYTES + 2 * C * 4; }
 
-// Dynamic shared memory: the tiles, then a[C] and b[C], then the reduction
-// scratch of row_stats (used by v2).
-template <typename T>
-int smem_bytes(int C) {
-  return ConvSmem<T>::tile_bytes + 2 * C * 4 + 2 * (THREADS / 32) * 4;
-}
-
-template <typename T>
 __device__ __forceinline__ float act(float v, float a, float b, bool silu) {
   const float y = fmaf(v, a, b);
-  if (!silu) return y;
-  if constexpr (std::is_same<T, bf16>::value) {
-    return __fdividef(y, 1.f + __expf(-y));
-  } else {
-    return y / (1.f + expf(-y));
-  }
+  return silu ? y / (1.f + expf(-y)) : y;
 }
 
-__device__ __forceinline__ void store2(bf16* dst, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ __forceinline__ void store2(float* dst, float v0, float v1) {
-  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-}
-
-// Two values `stride` apart (two channels of one pixel), held as one pair.
-template <typename T>
-struct Pair;
-template <>
-struct Pair<bf16> {
-  using type = __nv_bfloat162;
-};
-template <>
-struct Pair<float> {
-  using type = float2;
-};
-
-__device__ __forceinline__ __nv_bfloat162 load_pair(const bf16* p, int64_t stride) {
-  return __halves2bfloat162(p[0], p[stride]);
-}
-__device__ __forceinline__ float2 load_pair(const float* p, int64_t stride) { return make_float2(p[0], p[stride]); }
-__device__ __forceinline__ float2 to_f32x2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
-__device__ __forceinline__ float2 to_f32x2(float2 v) { return v; }
-
-// acc[r][j][e]: this thread's outputs in the mma.sync C-fragment layout, for
-// the warp's pixel row r (tile row 2 * wm + r, 16 pixels) and 8-channel group
-// j (channels wn * 64 + 8 j ...): pixel g + 8 (e / 2), channel 2 tig + e % 2,
-// with g = lane / 4 and tig = lane % 4.
+// acc[r][j][e]: this thread's outputs for the warp's pixel row r (tile row
+// 2 * wm + r, 16 pixels) and 8-channel group j (channels wn * 64 + 8 j ...):
+// pixel g + 8 (e / 2), channel 2 tig + e % 2, with g = lane / 4 and tig =
+// lane % 4.
 using Acc = float[2][8][4];
 
-// One chunk's products over the nine taps, bf16 on the tensor cores.
-__device__ __forceinline__ void chunk_products(Acc& acc, const bf16* sx, const bf16* sw, int wm, int wn,
-                                               int lane) {
-  constexpr int LDK = ConvSmem<bf16>::LDK;
-  // ldmatrix row addresses: A rows are pixels (lanes 0-15 rows 0-15 at k, lanes
-  // 16-31 the same rows at k + 8); B rows are output channels (lanes 0-7 and
-  // 16-23 rows 0-7 and 8-15 at k, lanes 8-15 and 24-31 the same at k + 8)
-  const int a_row = lane % 16, a_k = 8 * (lane / 16);
-  const int b_row = lane % 8 + 8 * (lane / 16), b_k = 8 * ((lane / 8) % 2);
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        ldmatrix_x4(a[r], sx + ((2 * wm + r + dy) * HALO_W + a_row + dx) * LDK + kk + a_k);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sw + (tap * BN + wn * 64 + jj * 16 + b_row) * LDK + kk + b_k);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mma_bf16(acc[r][2 * jj], a[r], b[0], b[1]);
-          mma_bf16(acc[r][2 * jj + 1], a[r], b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
-// The same for fp32, by scalar FMA in k order.
+// One chunk's products over the nine taps, by scalar FMA in k order.
 __device__ __forceinline__ void chunk_products(Acc& acc, const float* sx, const float* sw, int wm, int wn,
                                                int lane) {
-  constexpr int LDK = ConvSmem<float>::LDK;
   const int g = lane / 4, tig = lane % 4;
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
@@ -241,13 +188,12 @@ __device__ __forceinline__ void chunk_products(Acc& acc, const float* sx, const 
 // and the BN channels from n0, with act from the per-channel sa, sb in
 // shared memory and zero outside the image. Every thread of the block calls
 // it; it ends with the block synchronised and its shared memory free.
-template <typename T, bool kSilu>
-__device__ void conv_tile(const T* __restrict__ xb, const float* sa, const float* sb, const T* __restrict__ wk,
-                          const float* __restrict__ bias, T* __restrict__ ob, int C, int Cout, int H, int W,
-                          int h0, int w0, int n0, unsigned char* smem) {
-  using S = ConvSmem<T>;
-  T* sx = reinterpret_cast<T*>(smem);
-  T* sw = reinterpret_cast<T*>(smem + S::w_off);
+template <bool kSilu>
+__device__ void conv_tile(const float* __restrict__ xb, const float* sa, const float* sb,
+                          const float* __restrict__ wk, const float* __restrict__ bias, float* __restrict__ ob, int C,
+                          int Cout, int H, int W, int h0, int w0, int n0, unsigned char* smem) {
+  float* sx = reinterpret_cast<float*>(smem);
+  float* sw = reinterpret_cast<float*>(smem + W_OFF);
   float* sC = reinterpret_cast<float*>(smem);
   const int64_t HW = static_cast<int64_t>(H) * W;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -265,22 +211,22 @@ __device__ void conv_tile(const T* __restrict__ xb, const float* sa, const float
     // the nine taps' weights, 16-byte vectors of one output channel's run of
     // BK input channels, copied asynchronously (zeros past Cout) while the
     // halo below is loaded and normalized
-    constexpr int VEC = 16 / sizeof(T), VECS = BK / VEC;
+    constexpr int VEC = 4, VECS = BK / VEC;
     for (int i = threadIdx.x; i < 9 * BN * VECS; i += THREADS) {
       const int v = i % VECS, row = i / VECS;  // row = tap * BN + n
       const int tap = row / BN, co = n0 + row % BN;
-      const T* src = co < Cout ? wk + (static_cast<int64_t>(co) * 9 + tap) * C + c0 + v * VEC : wk;
-      cp_async16(sw + row * S::LDK + v * VEC, src, co < Cout);
+      const float* src = co < Cout ? wk + (static_cast<int64_t>(co) * 9 + tap) * C + c0 + v * VEC : wk;
+      cp_async16(sw + row * LDK + v * VEC, src, co < Cout);
     }
     // the halo's activation: two channels of one pixel a task, neighbouring
     // threads on neighbouring pixels; a batch of tasks' loads is issued
     // before the first is used, so their latencies overlap
     constexpr int TASKS = HALO * (BK / 2), PER_THREAD = (TASKS + THREADS - 1) / THREADS;
-    constexpr int BATCH = 6;  // tasks in flight: bounded by the 128 registers of two blocks an SM
+    constexpr int BATCH = 6;  // tasks in flight a thread
     static_assert(PER_THREAD % BATCH == 0, "halo tasks must split into batches");
 #pragma unroll 1
     for (int j0 = 0; j0 < PER_THREAD; j0 += BATCH) {
-      typename Pair<T>::type raw[BATCH];
+      float2 raw[BATCH];
       unsigned inside = 0;  // bit j: task j0 + j lies in the image
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) {
@@ -288,7 +234,8 @@ __device__ void conv_tile(const T* __restrict__ xb, const float* sa, const float
         const int k = 2 * (i / HALO), p = i % HALO;
         const int h = h0 - 1 + p / HALO_W, w = w0 - 1 + p % HALO_W;
         if (i < TASKS && h >= 0 && h < H && w >= 0 && w < W) {
-          raw[j] = load_pair(xb + (c0 + k) * HW + static_cast<int64_t>(h) * W + w, HW);
+          const float* src = xb + (c0 + k) * HW + static_cast<int64_t>(h) * W + w;
+          raw[j] = make_float2(src[0], src[HW]);
           inside |= 1u << j;
         }
       }
@@ -299,11 +246,10 @@ __device__ void conv_tile(const T* __restrict__ xb, const float* sa, const float
         float v0 = 0.f, v1 = 0.f;  // the conv's zero padding of the activation
         if (inside >> j & 1u) {
           const int c = c0 + k;
-          const float2 v = to_f32x2(raw[j]);
-          v0 = act<T>(v.x, sa[c], sb[c], kSilu);
-          v1 = act<T>(v.y, sa[c + 1], sb[c + 1], kSilu);
+          v0 = act(raw[j].x, sa[c], sb[c], kSilu);
+          v1 = act(raw[j].y, sa[c + 1], sb[c + 1], kSilu);
         }
-        if (i < TASKS) store2(sx + p * S::LDK + k, v0, v1);
+        if (i < TASKS) *reinterpret_cast<float2*>(sx + p * LDK + k) = make_float2(v0, v1);
       }
     }
     cp_async_wait_all();
@@ -319,19 +265,17 @@ __device__ void conv_tile(const T* __restrict__ xb, const float* sa, const float
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        sC[(wn * 64 + 8 * j + 2 * tig + e % 2) * S::LDC + (2 * wm + r) * TW + g + 8 * (e / 2)] = acc[r][j][e];
+        sC[(wn * 64 + 8 * j + 2 * tig + e % 2) * LDC + (2 * wm + r) * TW + g + 8 * (e / 2)] = acc[r][j][e];
   __syncthreads();
   for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
     const int n = i / BM, m = i % BM;
     const int h = h0 + m / TW, w = w0 + m % TW, co = n0 + n;
-    if (h < H && w < W && co < Cout) {
-      ob[co * HW + static_cast<int64_t>(h) * W + w] = from_f32<T>(sC[n * S::LDC + m] + bias[co]);
-    }
+    if (h < H && w < W && co < Cout) ob[co * HW + static_cast<int64_t>(h) * W + w] = sC[n * LDC + m] + bias[co];
   }
   __syncthreads();
 }
 
-// ---- v1 in bf16: the wgmma body ----
+// ---- bf16: the wgmma body (v1 and v2) ----
 
 namespace hop {
 
@@ -579,28 +523,47 @@ __device__ __forceinline__ void store_edges(bf16* act, const HaloTile& t, const 
   }
 }
 
-template <bool kSilu>
-__global__ void __launch_bounds__(THREADS, 1)
-gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ gn_w,
-                     const float* __restrict__ gn_b, const bf16* __restrict__ wk, const float* __restrict__ bias,
-                     bf16* __restrict__ out, int C, int Cout, int H, int W, int groups, float eps) {
-  extern __shared__ unsigned char smem_raw[];
-  // the ring's slabs must sit on the 1024-byte swizzle atom
+// The body's shared memory, carved from a block's dynamic buffer: the ring
+// on the 1024-byte swizzle atom, the two activation buffers, a[C], b[C] and
+// the bias [BN].
+struct Smem {
+  unsigned char* ring;
+  bf16* act;
+  float* sa;
+  float* sb;
+  float* sbias;
+  uint32_t ring_addr, act_addr;
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* smem_raw, int C) {
   const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   unsigned char* smem = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
-  unsigned char* ring = smem;
-  bf16* act = reinterpret_cast<bf16*>(smem + SMEM_ACT);
-  float* sa = reinterpret_cast<float*>(smem + SMEM_AB);
-  float* sb = sa + C;
-  float* sbias = sb + C;
-  const uint32_t ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
-  const uint32_t act_addr = static_cast<uint32_t>(__cvta_generic_to_shared(act));
+  Smem s;
+  s.ring = smem;
+  s.act = reinterpret_cast<bf16*>(smem + SMEM_ACT);
+  s.sa = reinterpret_cast<float*>(smem + SMEM_AB);
+  s.sb = s.sa + C;
+  s.sbias = s.sb + C;
+  s.ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(s.ring));
+  s.act_addr = static_cast<uint32_t>(__cvta_generic_to_shared(s.act));
+  return s;
+}
 
-  const int b = blockIdx.z, n0 = blockIdx.y * BN;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int h0 = blockIdx.x / tiles_w * TH, w0 = blockIdx.x % tiles_w * TW;
+// One output tile of one image: ob[co, h, w] = bias[co] + sum over taps and
+// channels of wk[co, tap, c] * act(xb)[c, h + dy - 1, w + dx - 1] for the
+// TH x TW pixels from (h0, w0) and the BN channels from n0 (xb, ob: the
+// image's x and out). `fold()` runs once the ring's first slabs are in
+// flight, before chunk 0's halo is normalised: it leaves a, b (halved under
+// SiLU) in sm.sa, sm.sb, and the block synchronised if it wrote them. Every
+// thread of the block calls it. It returns with every wgmma done and no
+// cp.async in flight but an empty group; other threads may still be reading
+// the output tile from the activation buffers.
+template <bool kSilu, typename Fold>
+__device__ __forceinline__ void wgmma_tile(const bf16* __restrict__ xb, const bf16* __restrict__ wk,
+                                           const float* __restrict__ bias, bf16* __restrict__ ob, int C, int Cout,
+                                           int H, int W, int h0, int w0, int n0, const Smem& sm, Fold&& fold) {
   const int64_t HW = static_cast<int64_t>(H) * W;
-  const HaloTile tile{x + static_cast<int64_t>(b) * C * HW, HW, H, W, h0, w0, W % 8 == 0};
+  const HaloTile tile{xb, HW, H, W, h0, w0, W % 8 == 0};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4, wi = warp % 4;
   const int nchunks = C / BKC, total = nchunks * TAPS;
@@ -609,21 +572,20 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
   const SlabLoader slabs(wk, C, Cout, n0);
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s) {
-    if (s < total) slabs.load(ring + s * SLAB, s / TAPS, s % TAPS, C);
+    if (s < total) slabs.load(sm.ring + s * SLAB, s / TAPS, s % TAPS, C);
     cp_async_commit();
   }
-  for (int n = threadIdx.x; n < BN; n += THREADS) sbias[n] = n0 + n < Cout ? bias[n0 + n] : 0.f;
-  fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps, sa, sb,
-                       kSilu ? 0.5f : 1.f);
+  for (int n = threadIdx.x; n < BN; n += THREADS) sm.sbias[n] = n0 + n < Cout ? bias[n0 + n] : 0.f;
+  fold();
   RunRaw raw[2];
   uint32_t edge[EDGE_ITEMS];
 #pragma unroll
   for (int k = 0; k < RUN_ITEMS; ++k) {
     load_item(tile, k, raw[0]);
-    store_item<kSilu>(act, tile, sa, sb, 0, k, raw[0]);
+    store_item<kSilu>(sm.act, tile, sm.sa, sm.sb, 0, k, raw[0]);
   }
   load_edges(tile, edge);
-  store_edges<kSilu>(act, tile, sa, sb, 0, edge);
+  store_edges<kSilu>(sm.act, tile, sm.sa, sm.sb, 0, edge);
 
   float acc[2][64];
 #pragma unroll
@@ -635,8 +597,8 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
 
   for (int i = 0; i < nchunks; ++i) {
     const bool more = i + 1 < nchunks;
-    const uint32_t cur = act_addr + (i & 1) * ACT_BYTES;
-    bf16* nxt = act + ((i + 1) & 1) * (ACT_BYTES / 2);
+    const uint32_t cur = sm.act_addr + (i & 1) * ACT_BYTES;
+    bf16* nxt = sm.act + ((i + 1) & 1) * (ACT_BYTES / 2);
     const int c_next = (i + 1) * BKC;
     const HaloTile next{tile.xb + static_cast<int64_t>(c_next) * HW, HW, H, W, h0, w0, tile.aligned};
 #pragma unroll
@@ -647,11 +609,11 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
       __syncthreads();             // everyone's; slab s - 2's products are done, its slot is free
       if (s + AHEAD < total) {
         const int ahead_tap = (t + AHEAD) % TAPS, ahead_chunk = (t + AHEAD) / TAPS;  // t is unrolled
-        slabs.load(ring + (s + AHEAD) % STAGES * SLAB, i + ahead_chunk, ahead_tap, C);
+        slabs.load(sm.ring + (s + AHEAD) % STAGES * SLAB, i + ahead_chunk, ahead_tap, C);
       }
       cp_async_commit();
       const int dy = t / 3, dx = t % 3;
-      const uint32_t slab = ring_addr + (s % STAGES) * SLAB;
+      const uint32_t slab = sm.ring_addr + (s % STAGES) * SLAB;
       fence_operands(acc[0]);
       fence_operands(acc[1]);
       wgmma_fence();
@@ -675,10 +637,10 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
           load_item(next, 0, raw[0]);
           load_item(next, 1, raw[1]);
         }
-        if (t >= 1 && t <= RUN_ITEMS) store_item<kSilu>(nxt, next, sa, sb, c_next, t - 1, raw[(t - 1) % 2]);
+        if (t >= 1 && t <= RUN_ITEMS) store_item<kSilu>(nxt, next, sm.sa, sm.sb, c_next, t - 1, raw[(t - 1) % 2]);
         if (t >= 1 && t + 1 < RUN_ITEMS) load_item(next, t + 1, raw[(t + 1) % 2]);
         if (t == RUN_ITEMS - 1) load_edges(next, edge);
-        if (t == RUN_ITEMS + 1) store_edges<kSilu>(nxt, next, sa, sb, c_next, edge);
+        if (t == RUN_ITEMS + 1) store_edges<kSilu>(nxt, next, sm.sa, sm.sb, c_next, edge);
       }
       wgmma_wait<1>();
       fence_operands(acc[0]);
@@ -692,7 +654,7 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
 
   // accumulator (m64 block j, n8 block q, e): tile row 2 wg + j, column
   // 16 wi + lane / 4 (+8 for e >= 2), channel 8 q + 2 (lane % 4) + e % 2
-  bf16* so = act;  // [BN][LDO]: channel rows, the tile's 256 pixels row-major
+  bf16* so = sm.act;  // [BN][LDO]: channel rows, the tile's 256 pixels row-major
   const int g = lane / 4, tq = lane % 4;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -700,7 +662,7 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q) {
       const int n = 8 * q + 2 * tq;
-      const float b0 = sbias[n], b1 = sbias[n + 1];
+      const float b0 = sm.sbias[n], b1 = sm.sbias[n + 1];
       so[n * LDO + m] = __float2bfloat16(acc[j][4 * q] + b0);
       so[(n + 1) * LDO + m] = __float2bfloat16(acc[j][4 * q + 1] + b1);
       so[n * LDO + m + 8] = __float2bfloat16(acc[j][4 * q + 2] + b0);
@@ -708,7 +670,6 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
     }
   }
   __syncthreads();
-  bf16* ob = out + static_cast<int64_t>(b) * Cout * HW;
 #pragma unroll 4
   for (int it = 0; it < BN * TH * VECS / THREADS; ++it) {
     const int idx = threadIdx.x + it * THREADS;
@@ -723,6 +684,24 @@ gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats
       for (int e = 0; e < 8 && w + e < W; ++e) dst[e] = src[e];
     }
   }
+}
+
+// v1: one block a tile, the fold from the statistics kernel's [B, 2, C] sums.
+template <bool kSilu>
+__global__ void __launch_bounds__(THREADS, 1)
+gn_conv_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ gn_w,
+                     const float* __restrict__ gn_b, const bf16* __restrict__ wk, const float* __restrict__ bias,
+                     bf16* __restrict__ out, int C, int Cout, int H, int W, int groups, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw, C);
+  const int b = blockIdx.z;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  wgmma_tile<kSilu>(x + static_cast<int64_t>(b) * C * HW, wk, bias, out + static_cast<int64_t>(b) * Cout * HW, C,
+                    Cout, H, W, blockIdx.x / tiles_w * TH, blockIdx.x % tiles_w * TW, blockIdx.y * BN, sm, [&] {
+                      fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps,
+                                           sm.sa, sm.sb, kSilu ? 0.5f : 1.f);
+                    });
 }
 
 template <bool kSilu>
@@ -743,73 +722,30 @@ int launch_bf16(const void* x, const float* stats, const float* gn_w, const floa
 
 }  // namespace hop
 
-// ---- v1 in fp32, and v2: the `conv_tile` body ----
+// ---- v1 in fp32 ----
 
-template <typename T, bool kSilu>
-__global__ void __launch_bounds__(THREADS, kBlocksPerSm<T>)
-gn_conv_kernel(const T* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ gn_w,
-               const float* __restrict__ gn_b, const T* __restrict__ wk, const float* __restrict__ bias,
-               T* __restrict__ out, int C, int Cout, int H, int W, int groups, float eps) {
+template <bool kSilu>
+__global__ void __launch_bounds__(THREADS, 1)
+gn_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ gn_w,
+               const float* __restrict__ gn_b, const float* __restrict__ wk, const float* __restrict__ bias,
+               float* __restrict__ out, int C, int Cout, int H, int W, int groups, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sa = reinterpret_cast<float*>(smem + ConvSmem<T>::tile_bytes);
+  float* sa = reinterpret_cast<float*>(smem + TILE_BYTES);
   float* sb = sa + C;
   const int b = blockIdx.z;
   const int64_t HW = static_cast<int64_t>(H) * W;
   fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps, sa, sb);
   const int tiles_w = (W + TW - 1) / TW;
-  conv_tile<T, kSilu>(x + b * C * HW, sa, sb, wk, bias, out + b * Cout * HW, C, Cout, H, W,
-                      blockIdx.x / tiles_w * TH, blockIdx.x % tiles_w * TW, blockIdx.y * BN, smem);
-}
-
-template <typename T, bool kSilu>
-__global__ void __launch_bounds__(THREADS, kBlocksPerSm<T>)
-gn_conv_v2_kernel(const T* __restrict__ x, const float* __restrict__ gn_w, const float* __restrict__ gn_b,
-                  const T* __restrict__ wk, const float* __restrict__ bias, T* __restrict__ out, float* stats,
-                  int B, int C, int Cout, int H, int W, int groups, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sa = reinterpret_cast<float*>(smem + ConvSmem<T>::tile_bytes);
-  float* sb = sa + C;
-  float* red = sb + C;
-  const int64_t HW = static_cast<int64_t>(H) * W;
-
-  // phase 1: per-channel (sum x, sum x^2), one (b, c) row per block at a time
-  for (int r = blockIdx.x; r < B * C; r += gridDim.x) {
-    float s, ss;
-    row_stats<T, THREADS>(x + static_cast<int64_t>(r) * HW, HW, red, &s, &ss);
-    if (threadIdx.x == 0) {
-      const int b = r / C, c = r % C;
-      stats[static_cast<int64_t>(b) * 2 * C + c] = s;
-      stats[static_cast<int64_t>(b) * 2 * C + C + c] = ss;
-    }
-  }
-  __threadfence();
-  cg::this_grid().sync();
-
-  // phase 2: fold the groups of the tile's image into a, b (whenever the
-  // image changes; L2 reads of sums other blocks wrote before the barrier),
-  // then the conv body
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_hw = (H + TH - 1) / TH * tiles_w;
-  const int per_image = tiles_hw * ((Cout + BN - 1) / BN);
-  int folded = -1;
-  for (int t = blockIdx.x; t < B * per_image; t += gridDim.x) {
-    const int b = t / per_image, rem = t % per_image;
-    if (b != folded) {
-      fold_groups<THREADS>(stats + static_cast<int64_t>(b) * 2 * C, gn_w, gn_b, C, groups, HW, eps, sa, sb);
-      folded = b;
-    }
-    const int pix = rem % tiles_hw;
-    conv_tile<T, kSilu>(x + b * C * HW, sa, sb, wk, bias, out + b * Cout * HW, C, Cout, H, W,
-                        pix / tiles_w * TH, pix % tiles_w * TW, rem / tiles_hw * BN, smem);
-  }
+  conv_tile<kSilu>(x + b * C * HW, sa, sb, wk, bias, out + b * Cout * HW, C, Cout, H, W, blockIdx.x / tiles_w * TH,
+                   blockIdx.x % tiles_w * TW, blockIdx.y * BN, smem);
 }
 
 template <bool kSilu>
 int launch_v1_fp32(const void* x, const float* stats, const float* gn_w, const float* gn_b, const void* wk,
                    const float* bias, void* out, int B, int C, int Cout, int H, int W, int groups, float eps,
                    cudaStream_t stream) {
-  auto kernel = gn_conv_kernel<float, kSilu>;
-  const int bytes = smem_bytes<float>(C);
+  auto kernel = gn_conv_kernel<kSilu>;
+  const int bytes = smem_bytes(C);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles_hw = static_cast<int64_t>((H + TH - 1) / TH) * ((W + TW - 1) / TW);
@@ -820,11 +756,124 @@ int launch_v1_fp32(const void* x, const float* stats, const float* gn_w, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- v2: statistics, a grid barrier, the fold and the conv in one launch ----
+
+constexpr int kV2Warps = THREADS / 32;  // statistics items a block reduces at once, one a warp
+constexpr int kV2MaxParts = 8;          // segments a (b, c) row at most
+constexpr int kV2MinSegment = 4096;     // values a segment at least, before a row is split further
+constexpr int kV2FillPct = 90;          // the waves of B * C * parts items on the grid's warps at least this full
+constexpr int kV2StatsUnroll = 8;       // 16-byte loads in flight a thread in the statistics phase
+static_assert(hop::THREADS == THREADS, "one block size for both bodies");
+
+// Segments a (b, c) row of n values in the statistics phase on `slots`
+// warps (the grid's blocks x kV2Warps): the fewest parts (at most
+// kV2MaxParts, each segment at least kV2MinSegment values unless the row is
+// whole) whose rows * parts items fill ceil(items / slots) waves at least
+// kV2FillPct% full; else the fullest of those (the fewest on a tie).
+int v2_parts(int64_t rows, int64_t n, int64_t slots) {
+  int best = 1;
+  int64_t best_items = 0, best_room = 1;
+  for (int p = 1; p <= kV2MaxParts; ++p) {
+    if (p > 1 && n / p < kV2MinSegment) break;
+    const int64_t items = rows * p, room = (items + slots - 1) / slots * slots;  // the waves' slots
+    if (items * 100 >= room * kV2FillPct) return p;
+    if (items * best_room > best_items * room) {
+      best = p;
+      best_items = items;
+      best_room = room;
+    }
+  }
+  return best;
+}
+
+// The tiles of one image in phase 2: (pixel tiles along w, pixel tiles, channel tiles).
+template <typename T>
+struct V2Tiles {
+  static constexpr bool kWgmma = std::is_same<T, bf16>::value;
+  static constexpr int TH = kWgmma ? hop::TH : ::TH, TW = kWgmma ? hop::TW : ::TW, BN = kWgmma ? hop::BN : ::BN;
+  int tiles_w, tiles_hw, ntiles;
+  __host__ __device__ V2Tiles(int Cout, int H, int W)
+      : tiles_w((W + TW - 1) / TW), tiles_hw((H + TH - 1) / TH * tiles_w), ntiles((Cout + BN - 1) / BN) {}
+};
+
+// v2's phase 1: each (b, c, part) item's fp32 (sum x, sum x^2), one warp an
+// item, into stats [B, 2, C, parts]; one block barrier at the end. The wgmma
+// body after it holds 255 registers a thread, and how ptxas allocates them
+// depends on this code's shape: without the barrier the body spills 52-60
+// bytes, and as a call of its own (not inlined) 68-76, each ~10% slower
+// (`perf/torch_gn_v2_variants.py`).
+template <typename T>
+__device__ __forceinline__ void v2_stats(const T* x, float* stats, int rows, int C, int64_t HW, int parts) {
+  const int lane = threadIdx.x % 32;
+  for (int r = blockIdx.x * kV2Warps + threadIdx.x / 32; r < rows * parts; r += gridDim.x * kV2Warps) {
+    const int row = r / parts, part = r % parts;  // row = b * C + c
+    float s = 0.f, ss = 0.f;
+    segment_partial<T, 32, kV2StatsUnroll>(x + static_cast<int64_t>(row) * HW, HW, part, parts, lane, s, ss);
+    warp_sums(s, ss);
+    if (lane == 0) {
+      float* st = stats + (static_cast<int64_t>(row / C) * 2 * C + row % C) * parts + part;
+      st[0] = s;
+      st[static_cast<int64_t>(C) * parts] = ss;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(THREADS, 1)
+gn_conv_v2_kernel(const T* __restrict__ x, const float* __restrict__ gn_w, const float* __restrict__ gn_b,
+                  const T* __restrict__ wk, const float* __restrict__ bias, T* __restrict__ out, float* stats,
+                  int parts, int B, int C, int Cout, int H, int W, int groups, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int64_t HW = static_cast<int64_t>(H) * W;
+
+  v2_stats(x, stats, B * C, C, HW, parts);
+  __threadfence();
+  cg::this_grid().sync();
+
+  // phase 2: the items (image, pixel tile, channel tile), the channel tile
+  // fastest; the fold at each new image, from sums other blocks wrote before
+  // the barrier (read through L2 by fold_groups)
+  const V2Tiles<T> tl(Cout, H, W);
+  const int per_image = tl.tiles_hw * tl.ntiles;
+  int folded = -1;
+  if constexpr (V2Tiles<T>::kWgmma) {
+    const hop::Smem sm = hop::carve(smem, C);
+    for (int t = blockIdx.x; t < B * per_image; t += gridDim.x) {
+      const int b = t / per_image, pix = t % per_image / tl.ntiles, n0 = t % tl.ntiles * hop::BN;
+      hop::wgmma_tile<kSilu>(x + static_cast<int64_t>(b) * C * HW, wk, bias, out + static_cast<int64_t>(b) * Cout * HW,
+                             C, Cout, H, W, pix / tl.tiles_w * hop::TH, pix % tl.tiles_w * hop::TW, n0, sm, [&] {
+                               if (b == folded) return;  // the activation buffers are free: the fold's scratch
+                               fold_parts<THREADS>(stats + static_cast<int64_t>(b) * 2 * C * parts, gn_w, gn_b, C,
+                                                   groups, HW, eps, sm.sa, sm.sb, kSilu ? 0.5f : 1.f, parts,
+                                                   reinterpret_cast<float*>(sm.act));
+                               folded = b;
+                             });
+      cp_async_wait_all();  // the shared memory free for the next item: no copy or read in flight
+      __syncthreads();
+    }
+  } else {
+    float* sa = reinterpret_cast<float*>(smem + TILE_BYTES);
+    float* sb = sa + C;
+    for (int t = blockIdx.x; t < B * per_image; t += gridDim.x) {
+      const int b = t / per_image, pix = t % per_image / tl.ntiles, n0 = t % tl.ntiles * BN;
+      if (b != folded) {  // the previous tile ended with the block synchronised: its tiles are the scratch
+        fold_parts<THREADS>(stats + static_cast<int64_t>(b) * 2 * C * parts, gn_w, gn_b, C, groups, HW, eps, sa, sb,
+                            1.f, parts, reinterpret_cast<float*>(smem));
+        folded = b;
+      }
+      conv_tile<kSilu>(x + b * C * HW, sa, sb, wk, bias, out + b * Cout * HW, C, Cout, H, W, pix / tl.tiles_w * TH,
+                       pix % tl.tiles_w * TW, n0, smem);
+    }
+  }
+}
+
 template <typename T, bool kSilu>
 int launch_v2(const void* x, const float* gn_w, const float* gn_b, const void* wk, const float* bias, void* out,
-              float* stats, int B, int C, int Cout, int H, int W, int groups, float eps, cudaStream_t stream) {
+              float* stats, int parts, int B, int C, int Cout, int H, int W, int groups, float eps,
+              cudaStream_t stream) {
   auto kernel = gn_conv_v2_kernel<T, kSilu>;
-  const int bytes = smem_bytes<T>(C);
+  const int bytes = V2Tiles<T>::kWgmma ? hop::smem_bytes(C) : smem_bytes(C);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, coop = 0, sms = 0, per_sm = 0;
@@ -837,18 +886,18 @@ int launch_v2(const void* x, const float* gn_w, const float* gn_b, const void* w
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes)) != cudaSuccess)
     return static_cast<int>(err);
   if (per_sm < 1) return -3;
-  // the persistent grid: every block resident at once (the barrier needs it),
-  // and no more blocks than the larger phase has work items
-  const int64_t tiles =
-      static_cast<int64_t>(B) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * ((Cout + BN - 1) / BN);
-  int64_t work = static_cast<int64_t>(B) * C;
-  if (tiles > work) work = tiles;
-  int64_t blocks = static_cast<int64_t>(per_sm) * sms;
-  if (work < blocks) blocks = work;
+  // the persistent grid: every block resident at once (the barrier needs
+  // it), and no more blocks than the larger phase has items
+  const int64_t full = static_cast<int64_t>(per_sm) * sms, rows = static_cast<int64_t>(B) * C;
+  if (parts != v2_parts(rows, static_cast<int64_t>(H) * W, full * kV2Warps)) return -4;
+  const V2Tiles<T> tl(Cout, H, W);
+  const int64_t work =
+      std::max((rows * parts + kV2Warps - 1) / kV2Warps, static_cast<int64_t>(B) * tl.tiles_hw * tl.ntiles);
+  const int64_t blocks = std::min(full, work);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(wk);
   T* op = static_cast<T*>(out);
-  void* args[] = {&xp, &gn_w, &gn_b, &wp, &bias, &op, &stats, &B, &C, &Cout, &H, &W, &groups, &eps};
+  void* args[] = {&xp, &gn_w, &gn_b, &wp, &bias, &op, &stats, &parts, &B, &C, &Cout, &H, &W, &groups, &eps};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)), dim3(THREADS), args, bytes, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -880,22 +929,26 @@ int e2eft_gn_silu_conv3x3(const void* x, const float* stats, const float* gn_w, 
 }
 
 // v2: as e2eft_gn_silu_conv3x3, from x alone (no statistics argument);
-// `stats` is fp32 scratch of [B, 2, C] that the kernel overwrites. C must be
-// a multiple of 32 and of `groups`. Returns as above, and -2 when the device
-// cannot launch cooperatively, -3 when one block does not fit on an SM.
+// `stats` is fp32 scratch of [B, 2, C, parts] that the kernel overwrites,
+// with `parts` as v2_parts gives it for this card (the wrapper's
+// `gn_conv.v2_plan`). C must be a multiple of `groups`, and of 64 (at most
+// 6416) in bf16, of 32 in fp32. Returns as above, and -2 when the device
+// cannot launch cooperatively, -3 when one block does not fit on an SM, -4
+// when `parts` is not the kernel's.
 int e2eft_gn_silu_conv3x3_v2(const void* x, const float* gn_w, const float* gn_b, const void* wk,
-                             const float* bias, void* out, float* stats, int dtype, int silu, int B, int C,
+                             const float* bias, void* out, float* stats, int parts, int dtype, int silu, int B, int C,
                              int Cout, int H, int W, int groups, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C % BK != 0 || groups < 1 || C % groups != 0) return -1;
+  if (C % (dtype == 1 ? hop::BKC : BK) != 0 || groups < 1 || C % groups != 0) return -1;
+  if (8 * C > (dtype == 1 ? hop::ACT_BYTES : TILE_BYTES)) return -1;  // the fold's scratch, 2 C floats
   if (dtype == 0 && silu)
-    return launch_v2<float, true>(x, gn_w, gn_b, wk, bias, out, stats, B, C, Cout, H, W, groups, eps, st);
+    return launch_v2<float, true>(x, gn_w, gn_b, wk, bias, out, stats, parts, B, C, Cout, H, W, groups, eps, st);
   if (dtype == 0)
-    return launch_v2<float, false>(x, gn_w, gn_b, wk, bias, out, stats, B, C, Cout, H, W, groups, eps, st);
+    return launch_v2<float, false>(x, gn_w, gn_b, wk, bias, out, stats, parts, B, C, Cout, H, W, groups, eps, st);
   if (dtype == 1 && silu)
-    return launch_v2<bf16, true>(x, gn_w, gn_b, wk, bias, out, stats, B, C, Cout, H, W, groups, eps, st);
+    return launch_v2<bf16, true>(x, gn_w, gn_b, wk, bias, out, stats, parts, B, C, Cout, H, W, groups, eps, st);
   if (dtype == 1)
-    return launch_v2<bf16, false>(x, gn_w, gn_b, wk, bias, out, stats, B, C, Cout, H, W, groups, eps, st);
+    return launch_v2<bf16, false>(x, gn_w, gn_b, wk, bias, out, stats, parts, B, C, Cout, H, W, groups, eps, st);
   return -1;
 }
 

@@ -116,8 +116,8 @@ def load_library() -> ctypes.CDLL:
         "e2eft_gn_channel_stats": [ptr, ptr, i32, i32, i32, i64, ptr],  # x, out, dtype, B, C, n
         # x, stats, gn weight, gn bias, w, bias, out, dtype, silu, B, C, Cout, H, W, groups, eps
         "e2eft_gn_silu_conv3x3": [ptr] * 7 + [i32] * 8 + [f32, ptr],
-        # x, gn weight, gn bias, w, bias, out, stats, dtype, silu, B, C, Cout, H, W, groups, eps
-        "e2eft_gn_silu_conv3x3_v2": [ptr] * 7 + [i32] * 8 + [f32, ptr],
+        # x, gn weight, gn bias, w, bias, out, stats, parts, dtype, silu, B, C, Cout, H, W, groups, eps
+        "e2eft_gn_silu_conv3x3_v2": [ptr] * 7 + [i32] * 9 + [f32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -14,8 +14,12 @@ Kernels (CUDA C++ for sm_90a, see the sources' header notes for their design):
   [Cout, 3, 3, C] in the compute dtype. In bf16 the conv is a `wgmma` body
   whose tiles `BF16_TILE` mirrors; fp32 keeps the scalar `conv_tile` body.
 - v2 (`E2EFT_GNCONV_IMPL=v2`, read at each call): `csrc/gn_conv.cu`'s
-  single cooperative launch, statistics + fold + conv (replacing
-  `_conv_kernel_v2`).
+  single cooperative launch (replacing `_conv_kernel_v2`): a persistent grid
+  of one block an SM reduces the (b, c) rows, cut into `parts` segments of
+  one warp each, into an fp32 scratch [B, 2, C, parts] that this wrapper
+  allocates, passes a grid barrier, then walks the conv's tiles, folding
+  a, b at each new image; in bf16 each tile runs v1's `wgmma` body.
+  `v2_plan` mirrors its grid and parts rule.
 
 `fold_stats` is the fold in plain torch, the kernels' formula, for the tests.
 
@@ -38,8 +42,9 @@ tests run the same wiring with the plain version.
 
 from __future__ import annotations
 
+import functools
 import os
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -55,12 +60,72 @@ IMPLS = ("v1", "v2")
 # channels a block, BKC input channels a chunk, a ring of STAGES weight slabs with AHEAD in flight; a test parses
 # the source to keep them equal.
 BF16_TILE = {"TH": 4, "TW": 64, "BN": 128, "BKC": 64, "STAGES": 5, "AHEAD": 3}
+# The fp32 `conv_tile` body's tiles (v1 and v2 in fp32), BK input channels a chunk.
+FP32_TILE = {"TH": 8, "TW": 16, "BN": 128, "BK": 32}
+# v2's statistics split (`csrc/gn_conv.cu`, `v2_parts`: one warp a segment, V2_WARPS warps a block); a test
+# parses the source to keep them equal.
+V2_SPLIT = {"kV2MaxParts": 8, "kV2MinSegment": 4096, "kV2FillPct": 90, "kV2StatsUnroll": 8}
+V2_WARPS = 8
 
 
 def conv_blocks(b: int, cout: int, h: int, w: int) -> int:
     """Blocks of one bf16 v1 launch (one a tile of TH x TW pixels and BN channels), one resident an SM."""
     t = BF16_TILE
     return b * -(-h // t["TH"]) * -(-w // t["TW"]) * -(-cout // t["BN"])
+
+
+def v2_parts(rows: int, n: int, slots: int) -> int:
+    """Segments a (b, c) row of n values in v2's statistics phase on `slots`
+    warps, as `csrc/gn_conv.cu::v2_parts`: the fewest parts (each segment at
+    least kV2MinSegment values unless the row is whole) whose rows * parts
+    items fill their waves of `slots` at least kV2FillPct% full; else the
+    fullest."""
+    s = V2_SPLIT
+    best, best_items, best_room = 1, 0, 1
+    for p in range(1, s["kV2MaxParts"] + 1):
+        if p > 1 and n // p < s["kV2MinSegment"]:
+            break
+        items = rows * p
+        room = -(-items // slots) * slots
+        if items * 100 >= room * s["kV2FillPct"]:
+            return p
+        if items * best_room > best_items * room:
+            best, best_items, best_room = p, items, room
+    return best
+
+
+class V2Plan(NamedTuple):
+    """One v2 launch: `parts` segments a (b, c) row, the conv's tiles (`tiles_w`
+    along w, `tiles_hw` a channel tile, `ntiles` channel tiles; `items` =
+    B x tiles_hw x ntiles), and `blocks`, the persistent grid."""
+
+    parts: int
+    tiles_w: int
+    tiles_hw: int
+    ntiles: int
+    items: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def v2_plan(b: int, c: int, h: int, w: int, cout: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> V2Plan:
+    """v2's grid on a card of `sms` SMs, as `launch_v2` computes it: one block
+    resident an SM (its shared memory, in both dtypes), and no more blocks
+    than the larger phase has items (a statistics item is a warp's, a conv
+    item a block's)."""
+    t = BF16_TILE if dtype == torch.bfloat16 else FP32_TILE
+    full = sms
+    parts = v2_parts(b * c, h * w, full * V2_WARPS)
+    tiles_w = -(-w // t["TW"])
+    tiles_hw = -(-h // t["TH"]) * tiles_w
+    ntiles = -(-cout // t["BN"])
+    items = b * tiles_hw * ntiles
+    return V2Plan(parts, tiles_w, tiles_hw, ntiles, items, min(full, max(-(-b * c * parts // V2_WARPS), items)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -128,16 +193,17 @@ def gn_conv_kernel(
     """`gn_conv_reference` (without the residual) with the CUDA kernels, v1 or
     v2 as `impl()` says. x: contiguous fp32 or bf16 [B, C, H, W] on the card;
     weight [Cout, C, 3, 3], laid out and cast to x's dtype here; the
-    GroupNorm's affine and the conv bias go to the kernels in fp32."""
+    GroupNorm's affine and the conv bias go to the kernels in fp32. Takes
+    what the kernels take (C a multiple of 64), wider than `in_envelope`."""
     form = impl()
     check_kernel_operand("gn_silu_conv3x3", "x", x)
     if x.ndim != 4 or x.numel() == 0:
         raise ValueError(f"gn_silu_conv3x3: x must be a non-empty [B, C, H, W], got {tuple(x.shape)}")
     b, c, h, w = x.shape
     cout = weight.shape[0]
-    if weight.shape != (cout, c, 3, 3) or not in_envelope(c, groups, weight.shape[2:]):
+    if weight.shape != (cout, c, 3, 3) or c % 64 or c % groups:
         raise ValueError(f"gn_silu_conv3x3: x {tuple(x.shape)}, weight {tuple(weight.shape)}, {groups} groups "
-                         "are outside the kernels' envelope")
+                         "are outside the kernels' limits (a 3x3 weight, C a multiple of 64 and of groups)")
     if b > 65535:
         raise ValueError(f"gn_silu_conv3x3: batch {b} exceeds the kernel's grid")
     for name, t in (("GroupNorm weight", gn_weight), ("GroupNorm bias", gn_bias), ("weight", weight),
@@ -157,8 +223,9 @@ def gn_conv_kernel(
         stats = channel_stats(x)
         _build.launch(launches, "gn_silu_conv3x3", x, x.data_ptr(), stats.data_ptr(), *params, *sizes)
     else:
-        stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-        _build.launch(launches, "gn_silu_conv3x3_v2", x, x.data_ptr(), *params, stats.data_ptr(), *sizes)
+        parts = v2_plan(b, c, h, w, cout, _sms(x.device), x.dtype).parts
+        stats = torch.empty((b, 2, c, parts), dtype=torch.float32, device=x.device)
+        _build.launch(launches, "gn_silu_conv3x3_v2", x, x.data_ptr(), *params, stats.data_ptr(), parts, *sizes)
     return out
 
 

@@ -5,15 +5,18 @@
 At each of the 8 GroupNorm -> conv shapes of the 480x640 bs-2 train step's
 frozen SD2 VAE (bf16, seeded random values), times: the statistics kernel
 (`groupnorm.channel_stats`), the v1 pair as the trainer runs it
-(`gn_conv.gn_conv_kernel`: statistics, the weight's layout, the conv) and the
-three-call library composite (`F.group_norm` -> `F.silu` -> `F.conv2d`, a
-yardstick the port never calls). Each as CUDA events around one call (median
-of 10; host launch gaps included) and as device time (torch.profiler, the
-call's kernels summed, mean of 10), beside its bound (bytes over 3.35 TB/s,
-operations over 989 TFLOP/s); the host's cost of one call (50 calls launched
-back to back, host clock, no synchronisation between them); then the sums
-weighted by each shape's launches a train step, and the CUDA kernels one v1
-pair launches.
+(`gn_conv.gn_conv_kernel`: statistics, the weight's layout, the conv), v2
+(the same call under `E2EFT_GNCONV_IMPL=v2`: the weight's layout and the
+single cooperative launch) and the three-call library composite
+(`F.group_norm` -> `F.silu` -> `F.conv2d`, a yardstick the port never
+calls). Each as CUDA events around one call (median of 10; host launch
+gaps included), back to back (CUDA events around 20 calls, over 20: the
+card's time when it outruns the host) and as device time (torch.profiler,
+the call's kernels summed, mean of 10), beside its bound (bytes over 3.35
+TB/s, operations over 989 TFLOP/s); the host's cost of one call (50 calls
+launched back to back, host clock, no synchronisation between them); then
+the sums weighted by each shape's launches a train step, and the CUDA
+kernels one v1 pair and one v2 call launch.
 
 `--tree DIR` imports the package from another checkout (a `git archive` of
 the parent), so one chip call can time parent and change in turns with the
@@ -69,6 +72,21 @@ def device_ms(fn, reps: int = 10) -> float:
     return sum(e.device_time for e in kernels(fn, reps)) / 1e3 / reps
 
 
+def batch_ms(fn, reps: int = 20) -> float:
+    """Card time of one call: CUDA events around `reps` calls launched back to
+    back (the host runs ahead of the card when a call's kernels take longer
+    than its launch, so no host gap is counted)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def host_us(fn, reps: int = 50) -> float:
     """Host microseconds a call when `reps` calls are launched back to back
     (the card runs behind; the queue is drained before and after)."""
@@ -105,9 +123,14 @@ def main() -> int:
         gb = torch.randn(c, device="cuda", generator=gen) * 0.5
         weight = (torch.randn((co, c, 3, 3), device="cuda", generator=gen) * (9 * c) ** -0.5).bfloat16()
         bias = torch.randn(co, device="cuda", generator=gen) * 0.1
+
+        def pair():
+            return gc.gn_conv_kernel(x, gw, gb, 32, 1e-6, weight, bias, True)
+
         fns = {
             "stats": lambda: gn.channel_stats(x),
-            "v1": lambda: gc.gn_conv_kernel(x, gw, gb, 32, 1e-6, weight, bias, True),
+            "v1": pair,
+            "v2": pair,  # under E2EFT_GNCONV_IMPL=v2, set around its measurements below
             "library": lambda: F.conv2d(F.silu(F.group_norm(x, 32, gw.bfloat16(), gb.bfloat16(), 1e-6)), weight,
                                         bias.bfloat16(), padding=1),
         }
@@ -117,17 +140,25 @@ def main() -> int:
                "conv_bound_ms": max(flops / PEAK_BF16_FLOPS, (x.numel() + weight.numel() + b * co * h * w) * 2
                                     / PEAK_HBM_BYTES) * 1e3}
         for name, fn in fns.items():
+            os.environ["E2EFT_GNCONV_IMPL"] = "v2" if name == "v2" else "v1"
             row[f"{name}_ms"] = event_ms(fn)
+            row[f"{name}_batch_ms"] = batch_ms(fn)
             row[f"{name}_device_ms"] = device_ms(fn)
             row[f"{name}_host_us"] = host_us(fn)
-        row["v1_kernels"] = len(kernels(fns["v1"]))
+            if name in ("v1", "v2"):
+                row[f"{name}_kernels"] = len(kernels(fn))
+        os.environ.pop("E2EFT_GNCONV_IMPL")
         conv_dev = row["v1_device_ms"] - row["stats_device_ms"]
         print(f"B,C,H,W={b, c, h, w} -> {co} (x{launches}): events / device ms: stats {row['stats_ms']:.4f} / "
               f"{row['stats_device_ms']:.4f} (bound {row['stats_bound_ms']:.4f}), v1 pair {row['v1_ms']:.4f} / "
               f"{row['v1_device_ms']:.4f} (conv + layout {conv_dev:.4f}: {flops / conv_dev / 1e9:.0f} TFLOP/s, "
-              f"bound {row['conv_bound_ms']:.4f}), library {row['library_ms']:.4f} / {row['library_device_ms']:.4f}; "
-              f"{row['v1_kernels']} kernels a v1 pair; host us a call: stats {row['stats_host_us']:.1f}, v1 pair "
-              f"{row['v1_host_us']:.1f}, library {row['library_host_us']:.1f}", flush=True)
+              f"bound {row['conv_bound_ms']:.4f}), v2 {row['v2_ms']:.4f} / {row['v2_device_ms']:.4f} "
+              f"({row['conv_bound_ms'] / row['v2_device_ms']:.3f} of the bound), library {row['library_ms']:.4f} / "
+              f"{row['library_device_ms']:.4f}; back to back: stats {row['stats_batch_ms']:.4f}, v1 pair "
+              f"{row['v1_batch_ms']:.4f}, v2 {row['v2_batch_ms']:.4f}, library {row['library_batch_ms']:.4f}; "
+              f"kernels a call: v1 pair {row['v1_kernels']}, v2 {row['v2_kernels']}; "
+              f"host us a call: stats {row['stats_host_us']:.1f}, v1 pair {row['v1_host_us']:.1f}, v2 "
+              f"{row['v2_host_us']:.1f}, library {row['library_host_us']:.1f}", flush=True)
         rows.append(row)
         del x, weight
         torch.cuda.empty_cache()

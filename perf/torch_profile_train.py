@@ -17,7 +17,8 @@ batches. After two warm-up steps it prints:
   GN -> conv), and the peak device memory of those steps.
 
 `--split-only` stops after the split (no profiler: a cheaper host-clock
-A/B). `--tree DIR` imports the package from another checkout (a `git archive` of
+A/B). `E2EFT_GNCONV_IMPL=v2` in the environment runs the single-launch GN ->
+conv kernel. `--tree DIR` imports the package from another checkout (a `git archive` of
 the parent), for A/Bs in one chip call. The profiler's per-op tables go to
 `--out`. Imports no JAX.
 """
@@ -57,7 +58,8 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; tree {os.path.abspath(args.tree)}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; tree {os.path.abspath(args.tree)}; "
+          f"E2EFT_GNCONV_IMPL={os.environ.get('E2EFT_GNCONV_IMPL', 'v1')}", flush=True)
     models = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=1, device="cuda")
     empty = np.random.default_rng(1).normal(size=(1, 77, 1024)).astype(np.float32)
     config = TrainConfig(fused_vae_kernels=not args.unfused, gradient_checkpointing=True,
