@@ -74,7 +74,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    768x768 and 576x768 requests for two domains (18 and 17 forward launches),
    with latency and peak device memory; then one 768x768 request with
    `E2EFT_FA_HP=2` (5 heads-per-block launches + 13 forward), which matches
-   the hp = 1 outputs.
+   the hp = 1 outputs;
+12. GeoWizard training parity, fp32 with TF32 off, the default fused VAE and
+   UNet checkpointing: one joint step of the full-width GeoWizard (seeded
+   random weights, 256x256, batch 1, a mask with invalid pixels) on the CPU
+   (plain path) and on the GPU (kernels), in E2E mode (loss, per-loss
+   metrics, gradient norm, leaves) and in diffusion-loss mode (the same
+   explicit t and noise on both sides), bounded as phase 7, with each
+   kernel's launches and a non-zero gradient at every joint kernel site's
+   q/k/v projections and at the class embedding;
+13. GeoWizard training, slice B2's main path: `GeoWizardTrainer` with the
+   default `TrainConfig` (E2E, zeros noise, fused VAE, UNet checkpointing) +
+   `run_training` at 480x640, batch 2, bf16 compute with fp32 master
+   weights, on synthetic joint batches, with the launches of each kernel per
+   step (those of phase 8: the decode is one call at 2B), ms/step, img/s and
+   peak device memory; then a few diffusion-loss steps (two encodes, no
+   decode) and a few pyramid-noise steps, each with its launches.
+
+Phases 3, 4 and 4b include the joint step's new shapes: the VAE mid
+attention at [2, 4800, 1, 512] and [4, 4800, 1, 512] (the decoder at 2B
+under grad) and every GN -> conv shape of the encoder at B = 2 and 4 and the
+decoder at B = 4, with the GroupNorm kernels' sums per joint step.
 
 Every kernel's row in the JSON line carries its bound: the larger of the
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s (bf16,
@@ -126,6 +146,8 @@ ATTN_CASES = [
     (1, 432, 20, 64),  # ragged: 3 * 128 + 48 Q rows, 6 * 64 + 48 KV rows
     (1, 6912, 1, 512),
     (2, 4800, 1, 64),  # 480x640 level 0
+    (2, 4800, 1, 512),  # the 480x640 bs-2 frozen encoder's mid block (every train step)
+    (4, 4800, 1, 512),  # ... of GeoWizard's GT geometry at 2B (its diffusion-loss step)
     (2, 300, 3, 64),  # ragged: 2 * 128 + 44, 4 * 64 + 44
     (3, 300, 1, 512),  # ragged: 4 * 64 + 44, 9 * 32 + 12 (fp32 18 * 16 + 12)
     (2, 257, 3, 64),  # one valid column in the last KV tile
@@ -148,6 +170,7 @@ BWD_TRAIN_CASES = [
     (2, 9600, 8, 40),  # GeoWizard joint level 0
     (2, 2400, 8, 80),  # level 1
     (2, 600, 8, 160),  # level 2: 9 * 64 + 24, 18 * 32 + 24
+    (4, 4800, 1, 512),  # GeoWizard's VAE decoder mid block at 2B (differentiated)
 ]
 BWD_CASES = BWD_TRAIN_CASES + [
     (2, 300, 3, 64),
@@ -157,7 +180,13 @@ BWD_CASES = BWD_TRAIN_CASES + [
     (1, 257, 4, 160),  # one valid row in the last tile, either side
 ]
 GRAD_ROUTE_SHAPE = (4, 4800, 8, 40)  # GeoWizard's joint [2B, L, N, D] at 480x640 bs 2, under grad
-VAE_PAIRS = 48  # GN -> conv pairs of the SD2 VAE: 10 encoder + 14 decoder ResnetBlocks, two each
+# The SD VAE's GN -> conv pairs at 480x640, (C, H, W, Cout): how many. The encoder's 20 (5 ResnetBlocks of
+# its 4 levels and mid block, two pairs each) and the decoder's 28 (14 ResnetBlocks).
+ENCODER_PAIRS = {(128, 480, 640, 128): 4, (128, 240, 320, 256): 1, (256, 240, 320, 256): 3,
+                 (256, 120, 160, 512): 1, (512, 120, 160, 512): 3, (512, 60, 80, 512): 8}
+DECODER_PAIRS = {(512, 60, 80, 512): 10, (512, 120, 160, 512): 6, (512, 240, 320, 256): 1,
+                 (256, 240, 320, 256): 5, (256, 480, 640, 128): 1, (128, 480, 640, 128): 5}
+VAE_PAIRS = sum(ENCODER_PAIRS.values()) + sum(DECODER_PAIRS.values())  # 48
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 GEO_ATTN_CASES = [  # (B, L, N, D): GeoWizard's joint self-attention (2L tokens), then ragged ones
@@ -189,12 +218,15 @@ GEO_MH_SITES = 5  # the d=40 sites of a 768x768 request, under E2EFT_FA_HP=2
 # decoder's mid attention runs forward+LSE and the backward once. With the
 # fused VAE (`gn`: "v1" or "v2", None for unfused) every GN -> conv pair of
 # the encoder and the decoder launches once; the backward recomputes the
-# plain composite.
-def step_launches(unet_sites: int, gn: Optional[str] = "v1") -> dict:
-    return {"flash_attention_fwd": 1, "flash_attention_fwd_mh": 0, "flash_attention_fwd_lse": 2 * unet_sites + 1,
-            "flash_attention_bwd_dq": unet_sites + 1, "flash_attention_bwd_dkv": unet_sites + 1,
-            "gn_channel_stats": VAE_PAIRS * (gn == "v1"), "gn_silu_conv3x3": VAE_PAIRS * (gn == "v1"),
-            "gn_silu_conv3x3_v2": VAE_PAIRS * (gn == "v2")}
+# plain composite. GeoWizard's E2E step launches the same (its decode is one
+# call at 2B); its diffusion-loss step (`e2e=False`) decodes nothing and
+# encodes twice (the image, then the GT geometry at 2B).
+def step_launches(unet_sites: int, gn: Optional[str] = "v1", e2e: bool = True) -> dict:
+    pairs = VAE_PAIRS if e2e else 2 * sum(ENCODER_PAIRS.values())
+    return {"flash_attention_fwd": 1 if e2e else 2, "flash_attention_fwd_mh": 0,
+            "flash_attention_fwd_lse": 2 * unet_sites + e2e, "flash_attention_bwd_dq": unet_sites + e2e,
+            "flash_attention_bwd_dkv": unet_sites + e2e, "gn_channel_stats": pairs * (gn == "v1"),
+            "gn_silu_conv3x3": pairs * (gn == "v1"), "gn_silu_conv3x3_v2": pairs * (gn == "v2")}
 
 
 UNET_SITES_256 = 10  # UNet self-attention sites in the kernels' envelope at 256x256 (1024 and 256 tokens)
@@ -204,20 +236,39 @@ TRAIN_PARITY_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-3, "leaf": 2e-3}
 PARITY_LEAVES = ["conv_in.weight"] + [
     f"down_blocks.0.attentions.0.transformer_blocks.0.attn1.{p}.weight" for p in ("to_q", "to_k", "to_v", "to_out.0")
 ]
-TRAIN_STEPS = 5  # optimizer steps on the training main path (the first is the warm-up)
+TRAIN_STEPS = 5  # optimizer steps on the training main paths (the first is the warm-up)
+GEO_EXTRA_STEPS = 3  # GeoWizard diffusion-loss steps, then pyramid-noise steps, after its main path
+GEO_TRAIN_SITES_256 = 10  # GeoWizard joint kernel sites at 256x256 (2048 and 512 joint tokens; 128 stay plain)
+GEO_PARITY_LEAVES = ["conv_in.weight", "class_embedding.linear_1.weight"] + [
+    f"down_blocks.0.attentions.0.transformer_blocks.0.attn1.{p}.weight" for p in ("to_q", "to_k", "to_v", "to_out.0")
+]
 AB_STEPS = 4  # steps of each arm of the fused / unfused A/B (the first is the warm-up)
 V2_LOSS_BOUND = 1e-2  # bf16 step loss, v2 vs v1 relative: a, b folded in another order, through bf16 networks
-# (B, C, H, W, Cout): every GN -> conv shape of the 480x640 bs-2 frozen SD2 VAE, then ragged ones
-GN_CASES = [
-    (2, 128, 480, 640, 128), (2, 256, 480, 640, 128), (2, 128, 240, 320, 256), (2, 256, 240, 320, 256),
-    (2, 512, 240, 320, 256), (2, 256, 120, 160, 512), (2, 512, 120, 160, 512), (2, 512, 60, 80, 512),
+
+
+def pair_launches(*parts) -> dict:
+    """{(B, C, H, W, Cout): launches} of (batch, pairs) parts of a step."""
+    out: dict = {}
+    for b, pairs in parts:
+        for shape, n in pairs.items():
+            out[(b, *shape)] = out.get((b, *shape), 0) + n
+    return out
+
+
+# GN -> conv launches of each shape a step: SD2's (encoder and decoder at B = 2) and GeoWizard's joint
+# steps at bs 2 (E2E: the decoder at 2B = 4; diffusion loss: the encoder again at 4)
+GN_TRAIN_LAUNCHES = pair_launches((2, ENCODER_PAIRS), (2, DECODER_PAIRS))
+GN_JOINT_LAUNCHES = pair_launches((2, ENCODER_PAIRS), (4, DECODER_PAIRS))
+GN_JOINT_DIFFUSION_LAUNCHES = pair_launches((2, ENCODER_PAIRS), (4, ENCODER_PAIRS))
+# (B, C, H, W, Cout): every GN -> conv shape of those steps (timed in bf16), then ragged ones
+GN_TRAIN_SHAPES = list(dict.fromkeys([*GN_TRAIN_LAUNCHES, *GN_JOINT_LAUNCHES, *GN_JOINT_DIFFUSION_LAUNCHES]))
+GN_CASES = GN_TRAIN_SHAPES + [
     (1, 128, 37, 53, 128),  # ragged: 1961 pixels = 15 * 128 + 41; odd rows for the 16-byte vectors
     (2, 256, 1, 77, 128),  # H = 1: every tap but the middle row is padding
     (3, 128, 9, 9, 96),  # Cout ragged for the 64-wide channel tiles
     (1, 64, 240, 320, 64),  # C = 64, the kernels' own limit (the port's envelope is C % 128): v2 splits its rows
 ]
 GN_BOUND = {torch.float32: FP32_BOUND, torch.bfloat16: BF16_BOUND}  # max|d| / max|plain fp32|
-GN_TRAIN_LAUNCHES = dict(zip(GN_CASES[:8], (9, 1, 1, 8, 1, 1, 9, 18)))  # launches of each shape per train step
 
 
 def kernel_modules() -> tuple:
@@ -610,30 +661,37 @@ def phase_gn_kernels() -> dict:
                     f"statistics and v2 ({plan.blocks} blocks, {plan.parts} parts a row, {plan.items} tiles) "
                     "bit-identical over two calls")
             del stats, again, want_stats, outs, want, v2_again
-            if dtype == torch.bfloat16 and case in GN_TRAIN_LAUNCHES:
+            if dtype == torch.bfloat16 and case in GN_TRAIN_SHAPES:
                 rows[case] = gn_times(gc, gn, x, gw, gb, weight, bias, silu)
                 line += "; " + rows[case].pop("text")
             print(line, flush=True)
             del x
             torch.cuda.empty_cache()
 
-    def step_sum(name, key):
-        return sum(k * rows[s][name][key] for s, k in GN_TRAIN_LAUNCHES.items())
+    def step_sum(name, key, step=GN_TRAIN_LAUNCHES):
+        return sum(k * rows[s][name][key] for s, k in step.items())
 
-    print(f"[gn] per train step ({sum(GN_TRAIN_LAUNCHES.values())} launches each, bf16), events: "
-          + ", ".join(f"{n.replace('gn_', '')} {step_sum(n, 'ms'):.3f} ms (bound {step_sum(n, 'bound_ms'):.3f})"
-                      for n in names)
-          + f"; group_norm -> silu -> conv2d {step_sum('gn_silu_conv3x3', 'library_ms'):.3f} ms; alone: stats "
-          f"{step_sum('gn_channel_stats', 'alone_ms'):.3f}, conv {step_sum('gn_silu_conv3x3', 'conv_alone_ms'):.3f}, "
-          f"v1 pair {step_sum('gn_silu_conv3x3', 'alone_ms'):.3f}, v2 {step_sum('gn_silu_conv3x3_v2', 'alone_ms'):.3f}, "
-          f"library {step_sum('gn_silu_conv3x3', 'library_alone_ms'):.3f} ms; eager launches per v1 pair "
-          f"{rows[GN_CASES[0]]['eager_launches']}, per v2 call {rows[GN_CASES[0]]['v2_launches']}", flush=True)
+    for label, step in (("SD2 train step", GN_TRAIN_LAUNCHES), ("GeoWizard joint E2E step", GN_JOINT_LAUNCHES),
+                        ("GeoWizard diffusion-loss step", GN_JOINT_DIFFUSION_LAUNCHES)):
+        print(f"[gn] per {label} ({sum(step.values())} launches each, bf16), events: "
+              + ", ".join(f"{n.replace('gn_', '')} {step_sum(n, 'ms', step):.3f} ms (bound "
+                          f"{step_sum(n, 'bound_ms', step):.3f})" for n in names)
+              + f"; group_norm -> silu -> conv2d {step_sum('gn_silu_conv3x3', 'library_ms', step):.3f} ms; alone: "
+              f"stats {step_sum('gn_channel_stats', 'alone_ms', step):.3f}, conv "
+              f"{step_sum('gn_silu_conv3x3', 'conv_alone_ms', step):.3f}, v1 pair "
+              f"{step_sum('gn_silu_conv3x3', 'alone_ms', step):.3f}, v2 "
+              f"{step_sum('gn_silu_conv3x3_v2', 'alone_ms', step):.3f}, library "
+              f"{step_sum('gn_silu_conv3x3', 'library_alone_ms', step):.3f} ms", flush=True)
+    print(f"[gn] eager launches per v1 pair {rows[GN_CASES[0]]['eager_launches']}, per v2 call "
+          f"{rows[GN_CASES[0]]['v2_launches']}", flush=True)
     check(max(parts_seen) > 1, f"no case split v2's statistics rows: parts {parts_seen}")
     first = rows[GN_CASES[0]]
     return {n: {"max_abs_err": worst[n], **{k: first[n][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                                          "bound_by")},
                 "per_step_ms": step_sum(n, "ms"), "per_step_bound_ms": step_sum(n, "bound_ms"),
-                "shapes": [rows[s][n] for s in GN_TRAIN_LAUNCHES if s != GN_CASES[0]]} for n in names}
+                "per_joint_step_ms": step_sum(n, "ms", GN_JOINT_LAUNCHES),
+                "per_joint_step_bound_ms": step_sum(n, "bound_ms", GN_JOINT_LAUNCHES),
+                "shapes": [rows[s][n] for s in GN_TRAIN_SHAPES if s != GN_CASES[0]]} for n in names}
 
 
 def gn_times(gc, gn, x, gw, gb, weight, bias, silu) -> dict:
@@ -827,15 +885,15 @@ def synthetic_batch(rng, b: int, h: int, w: int, modality: str, invalid: float) 
 
 def kernel_sites(unet) -> tuple:
     """Record, during the next forward passes, the UNet self-attention modules
-    whose sequences fall in the kernels' envelope. Returns the list it fills
-    and the hooks' handles."""
+    whose sequences (2 L tokens under joint attention) fall in the kernels'
+    envelope. Returns the list it fills and the hooks' handles."""
     from diffusion_e2e_ft_tpu_torch.kernels import in_kernel_envelope
 
     sites, handles = [], []
     for name, module in unet.named_modules():
         if name.endswith(".attn1"):
             def hook(mod, args, name=name):
-                lq = args[0].shape[1]
+                lq = args[0].shape[1] * (2 if mod.joint else 1)
                 if in_kernel_envelope(lq, lq, mod.head_dim) and name not in sites:
                     sites.append(name)
             handles.append(module.register_forward_pre_hook(hook))
@@ -888,19 +946,35 @@ def phase_train_parity(fa, cpu_unet, cpu_vae, empty):
     return gpu_unet, gpu_vae
 
 
-def timed_steps(trainer, state, batches) -> tuple:
-    """One train step per batch, host clock synchronized around each: (state,
-    ms per step, launches per step, losses)."""
-    ms, per_step, losses = [], [], []
-    for batch in batches:
+def instrument(trainer) -> tuple:
+    """Wrap `trainer.train_step` so that each step is timed on the host clock,
+    synchronized on both sides, and its kernel launches counted. Returns the
+    lists it fills: (ms per step, launches per step)."""
+    step_ms, per_step = [], []
+    train_step = trainer.train_step
+
+    def timed_step(state, batch, generator=None):
         before = read_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = trainer.train_step(state, batch)
+        out = train_step(state, batch, generator)
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
         after = read_launches()
         per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    trainer.train_step = timed_step
+    return step_ms, per_step
+
+
+def timed_steps(trainer, state, batches, generator=None) -> tuple:
+    """One train step per batch, host clock synchronized around each: (state,
+    ms per step, launches per step, losses)."""
+    ms, per_step = instrument(trainer)
+    losses = []
+    for batch in batches:
+        state, metrics = trainer.train_step(state, batch, generator)
         losses.append(float(metrics["loss"]))
     return state, ms, per_step, losses
 
@@ -922,21 +996,7 @@ def phase_train(unet, vae, empty) -> dict:
                              output_dir=out_dir)
         check(config.fused_vae_kernels, "the default TrainConfig runs the fused VAE kernels")
         trainer = E2ETrainer(config, unet, vae, empty, compute_dtype=torch.bfloat16)
-        step_ms, per_step = [], []
-        train_step = trainer.train_step
-
-        def timed_step(state, batch):  # synchronized host clock and launches, per step
-            before = read_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = train_step(state, batch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            after = read_launches()
-            per_step.append({k: after[k] - before[k] for k in after})
-            return out
-
-        trainer.train_step = timed_step
+        step_ms, per_step = instrument(trainer)
         start = {n: dict(unet.named_parameters())[n].detach().clone() for n in watched}
         torch.cuda.reset_peak_memory_stats()
         reset_launches()  # the main path's run starts here
@@ -1188,6 +1248,147 @@ def phase_geowizard_serving(fa, fp32_pipe) -> dict:
     return launches
 
 
+def joint_batch(rng, b: int, h: int, w: int) -> dict:
+    """A synthetic GeoWizard batch: rgb in [-1, 1], depth in [-1, 1], unit
+    normals, a domain, and a mask with an invalid block in each image (so
+    the 8x-pooled latent mask keeps valid cells) and invalid pixels in it."""
+    n = rng.normal(size=(b, h, w, 3)).astype(np.float32)
+    mask = np.ones((b, h, w), bool)
+    for i in range(b):
+        y, x = rng.integers(0, h // 2), rng.integers(0, w // 2)
+        mask[i, y:y + h // 4, x:x + w // 4] = rng.random((h // 4, w // 4)) > 0.5
+    return {"rgb": rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
+            "depth_target": rng.uniform(-1, 1, (b, h, w)).astype(np.float32),
+            "normal_target": n / np.linalg.norm(n, axis=-1, keepdims=True), "val_mask": mask,
+            "domain": np.eye(3, dtype=np.float32)[rng.integers(0, 3)]}
+
+
+def phase_geowizard_train_parity() -> tuple:
+    """One GeoWizard joint step's loss, per-loss metrics and gradients, fp32,
+    TF32 off, the default fused VAE and UNet checkpointing, full width at
+    256x256 bs 1: CPU (plain) vs GPU (kernels), in E2E mode and in
+    diffusion-loss mode (the same explicit t and gaussian noise on both
+    sides). Returns the GPU UNet and the CPU VAE and image tower."""
+    from diffusion_e2e_ft_tpu_torch.training import GeoWizardTrainer, TrainConfig
+
+    t0 = time.perf_counter()
+    cpu = geowizard_full_width(seed=3, device="cpu")
+    print(f"[geo-train-parity] random init on the cpu {time.perf_counter() - t0:.1f} s", flush=True)
+    gpu_unet = copy.deepcopy(cpu.unet).cuda()
+    sites, handles = kernel_sites(gpu_unet)
+    rng = np.random.default_rng(8)
+    batch = joint_batch(rng, 1, 256, 256)
+    explicit = {"timesteps": torch.tensor([int(rng.integers(0, 1000))]),
+                "noise": torch.randn((2, 4, 32, 32), generator=torch.Generator().manual_seed(8))}
+    for e2e in (True, False):
+        config = TrainConfig(e2e=e2e, gradient_checkpointing=True, gradient_accumulation_steps=1)
+        kw = {} if e2e else explicit
+        t0 = time.perf_counter()
+        loss_c, m_c, grads_c = GeoWizardTrainer(config, cpu.unet, cpu.vae, cpu.image_encoder).value_and_grad(
+            batch, **kw)
+        t1 = time.perf_counter()
+        reset_launches()
+        loss_g, m_g, grads_g = GeoWizardTrainer(config, gpu_unet, cpu.vae, cpu.image_encoder).value_and_grad(
+            batch, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        mode = "e2e" if e2e else "diffusion-loss"
+        norm_c = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_c.values()])))
+        norm_g = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_g.values()])))
+        metric_rel = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k])) for k in m_c}
+        norm_rel = abs(norm_g - norm_c) / norm_c
+        leaf_rel = {n: float((grads_g[n].cpu() - grads_c[n]).abs().max() / grads_c[n].abs().max())
+                    for n in GEO_PARITY_LEAVES}
+        # the worst leaf over all of them, against the largest gradient entry of any leaf (a leaf's own
+        # scale can be 0: the cross-attention keys see one context token, so their gradient is 0)
+        diffs = {n: float((grads_g[n].cpu() - grads_c[n]).abs().max()) for n in grads_c}
+        worst = max(diffs, key=diffs.get)
+        worst_rel = diffs[worst] / max(float(g.abs().max()) for g in grads_c.values())
+        print(f"[geo-train-parity] fp32 256x256 {mode}: " + ", ".join(
+            f"{k} cpu {float(m_c[k]):.6f} gpu {float(m_g[k]):.6f} (rel {e:.2e})" for k, e in metric_rel.items())
+            + f", grad norm cpu {norm_c:.6e} gpu {norm_g:.6e} (rel {norm_rel:.2e}), leaf rel max|d| "
+            + ", ".join(f"{n.replace('.weight', '').split('attn1.')[-1]} {e:.2e}" for n, e in leaf_rel.items())
+            + f"; worst leaf {worst} max|d| / max|g| over all leaves {worst_rel:.2e}; cpu step {t1 - t0:.1f} s; "
+            f"launches {launches}", flush=True)
+        check(float(loss_c) > 0 and abs(float(loss_c) - float(loss_g)) / float(loss_c) <= TRAIN_PARITY_BOUNDS["loss"],
+              f"{mode}: loss cpu {float(loss_c)} gpu {float(loss_g)}")
+        for k, e in metric_rel.items():
+            check(e <= TRAIN_PARITY_BOUNDS["loss"], f"{mode}: {k} rel {e}")
+        check(norm_rel <= TRAIN_PARITY_BOUNDS["grad_norm"], f"{mode}: grad norm rel {norm_rel}")
+        for n, e in {**leaf_rel, worst: worst_rel}.items():
+            check(e <= TRAIN_PARITY_BOUNDS["leaf"], f"{mode}: {n} rel max|d| {e}")
+        check(len(sites) == GEO_TRAIN_SITES_256, f"GeoWizard joint kernel sites at 256x256: {sites}")
+        check(launches == step_launches(GEO_TRAIN_SITES_256, e2e=e2e), f"{mode}: launches {launches}")
+        for name in [f"{site}.{proj}.weight" for site in sites for proj in ("to_q", "to_k", "to_v")] + [
+                "class_embedding.linear_1.weight"]:
+            g = grads_g[name]
+            check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, f"{mode}: zero gradient at {name}")
+    print(f"[geo-train-parity] every one of the {len(sites)} joint kernel sites' to_q/to_k/to_v and the class "
+          "embedding have a non-zero gradient, both modes", flush=True)
+    for handle in handles:
+        handle.remove()
+    return gpu_unet, cpu.vae, cpu.image_encoder
+
+
+def phase_geowizard_train(unet, vae, image_encoder) -> dict:
+    """Slice B2's main path: GeoWizardTrainer with the default TrainConfig
+    (E2E, zeros noise, fused VAE, UNet checkpointing) + run_training at
+    480x640 bs 2, bf16 compute, fp32 masters, on synthetic joint batches;
+    then a few diffusion-loss steps and a few pyramid-noise steps. Returns the
+    kernel launches of the main run."""
+    from diffusion_e2e_ft_tpu_torch.training import GeoWizardTrainer, TrainConfig
+    from diffusion_e2e_ft_tpu_torch.training.loop import run_training
+
+    rng = np.random.default_rng(9)
+    batches = [joint_batch(rng, 2, 480, 640) for _ in range(TRAIN_STEPS)]
+    watched = ["conv_in.weight", "class_embedding.linear_1.weight"]
+    with tempfile.TemporaryDirectory() as out_dir:
+        config = TrainConfig(gradient_checkpointing=True, gradient_accumulation_steps=1, lr_warmup_steps=0,
+                             train_batch_size=2, max_train_steps=TRAIN_STEPS, checkpointing_steps=10 * TRAIN_STEPS,
+                             output_dir=out_dir)
+        check(config.fused_vae_kernels and config.e2e and config.noise_type == "zeros",
+              "the default TrainConfig: E2E, zeros noise, the fused VAE kernels")
+        trainer = GeoWizardTrainer(config, unet, vae, image_encoder, compute_dtype=torch.bfloat16)
+        step_ms, per_step = instrument(trainer)
+        start = {n: dict(unet.named_parameters())[n].detach().clone() for n in watched}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # the main path's run starts here
+        state = run_training(trainer, trainer.init_state(), lambda epoch: batches, log_every=1)
+        torch.cuda.synchronize()
+        launches = read_launches()  # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logs = [json.loads(line) for line in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
+    check(state.step == TRAIN_STEPS and len(logs) == TRAIN_STEPS, f"ran {state.step} steps, {len(logs)} logged")
+    for rec in logs:
+        check(np.isfinite(rec["train_loss"]) and rec["train_loss"] > 0 and np.isfinite(rec["grad_norm"])
+              and rec["grad_norm"] > 0, f"step {rec['step']}: loss {rec['train_loss']}, grad norm {rec['grad_norm']}")
+    for n in watched:
+        check(not torch.equal(state.params[n], start[n]), f"{n} did not change")
+    want = step_launches(UNET_SITES_480x640)
+    check(all(s == want for s in per_step), f"launches per step {per_step}, expected {want}")
+    median = statistics.median(step_ms[1:])
+    norms = ", ".join(f"{r['grad_norm']:.3e}" for r in logs)
+    print(f"[geo-train] bf16 joint 480x640 bs 2, {TRAIN_STEPS} steps: ms/step {[round(x, 1) for x in step_ms]} "
+          f"(median after the first {median:.1f}, {2e3 / median:.2f} img/s), peak device memory {peak:.3f} GiB; "
+          f"loss {[round(r['train_loss'], 6) for r in logs]}, grad norm [{norms}]; launches per step {per_step[0]}",
+          flush=True)
+    del state, trainer
+
+    # the diffusion-loss mode and the trainer's pyramid noise (GeoWizard's t-scaled octaves), a few steps each
+    for label, cfg in (("diffusion loss", config.replace(e2e=False)), ("pyramid noise", config.replace(
+            noise_type="pyramid"))):
+        trainer = GeoWizardTrainer(cfg, unet, vae, image_encoder, compute_dtype=torch.bfloat16)
+        generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
+        _, ms, per_step, losses = timed_steps(trainer, trainer.init_state(), batches[:GEO_EXTRA_STEPS], generator)
+        want = step_launches(UNET_SITES_480x640, e2e=cfg.e2e)
+        print(f"[geo-train] {label}, {GEO_EXTRA_STEPS} steps: loss {[round(x, 6) for x in losses]}, ms/step "
+              f"{[round(x, 1) for x in ms]}; launches per step {per_step[0]}", flush=True)
+        check(all(np.isfinite(x) and x > 0 for x in losses), f"{label}: losses {losses}")
+        check(all(s == want for s in per_step), f"{label}: launches per step {per_step}, expected {want}")
+        del trainer
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch; this run needs one GPU")
@@ -1239,6 +1440,11 @@ def main() -> int:
     # the forward kernel's launches: slice A's and slice B's serving runs
     launches["flash_attention_fwd"] += geo_path["flash_attention_fwd"]
     launches["flash_attention_fwd_mh"] = geo_path["flash_attention_fwd_mh"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    geo_train = phase_geowizard_train(*phase_geowizard_train_parity())  # slice B2's main path
+    for name, n in geo_train.items():
+        launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
 
     table = {  # kernel: (source under csrc/, the TPU kernel under diffusion_e2e_ft_tpu/kernels/)

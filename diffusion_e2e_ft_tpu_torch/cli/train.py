@@ -1,11 +1,16 @@
-"""E2E fine-tuning CLI, port of `diffusion_e2e_ft_tpu/cli/train.py` for the
-depth and normals trainers (the joint GeoWizard trainer is slice B).
+"""E2E fine-tuning CLI, port of `diffusion_e2e_ft_tpu/cli/train.py`: the depth
+and normals trainer, and with `--modality joint` the GeoWizard trainer.
 
 Flow: load a base HF checkpoint -> conv_in 4 -> 8 surgery when starting from
 raw SD2 with a noise type -> Hypersim + VirtualKITTI2 mixed 9:1 (the port's
 copies of the JAX package's numpy `data/` readers) -> the train step on one device ->
 periodic checkpoints -> final HF export with trailing scheduler spacing and
-the frozen text tower copied in.
+the frozen tower copied in: the text tower, or for joint runs the image tower
+(`image_encoder/`, + `feature_extractor/`).
+
+A joint run builds its UNet with joint (cross-task) attention when it has a
+class embedding, as `loading.load_geowizard_pipeline` serves it: GeoWizard
+trains with that attention. (The JAX CLI loads the UNet without it.)
 
     python -m diffusion_e2e_ft_tpu_torch.cli.train --pretrained_model_name_or_path <dir> \\
         --hypersim_root data/hypersim --vkitti_root data/virtual_kitti_2 --half_precision
@@ -63,12 +68,11 @@ def main(argv=None):
     from diffusion_e2e_ft_tpu_torch.pipelines import loading
     from diffusion_e2e_ft_tpu_torch.training import checkpoints as ckpt
     from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
+    from diffusion_e2e_ft_tpu_torch.training.geowizard import GeoWizardTrainer
     from diffusion_e2e_ft_tpu_torch.training.loop import run_training
     from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer
 
     args = build_parser().parse_args(argv)
-    if args.modality == "joint":
-        raise NotImplementedError("--modality joint (the GeoWizard trainer) is not ported yet (slice B2)")
     if args.num_devices != 1:
         raise NotImplementedError("data-parallel training (--num_devices > 1) is not ported yet (slice F)")
     random.seed(args.seed)
@@ -100,14 +104,17 @@ def main(argv=None):
     sched_cfg = loading.scheduler_config_from_hf(
         loading._read_json(os.path.join(path, "scheduler", "scheduler_config.json"))
     )
-    if noise_type is not None and unet.config.in_channels == 4:
+    ucfg, weights = unet.config, unet.state_dict()
+    if noise_type is not None and ucfg.in_channels == 4:
         # raw SD2 start: duplicate conv_in for the concatenated noisy latent
-        ucfg = dataclasses.replace(unet.config, in_channels=8)
-        state = convert.replace_conv_in(unet.state_dict(), repeat=2)
+        ucfg = dataclasses.replace(ucfg, in_channels=8)
+        weights = convert.replace_conv_in(weights, repeat=2)
+    if args.modality == "joint":  # cross-task attention, a runtime flag and no weights
+        ucfg = dataclasses.replace(ucfg, joint_attention=ucfg.class_embed_proj_dim is not None)
+    if ucfg != unet.config:
         with torch.device("meta"):
             unet = UNet2DCondition(ucfg)
-        unet.load_state_dict(state, strict=True, assign=True)
-    empty = loading.compute_empty_text_embed(os.path.join(path, "text_encoder"), device=args.device, pad_to=77)
+        unet.load_state_dict(weights, strict=True, assign=True)
 
     # --- data -------------------------------------------------------------
     hyper = Hypersim(args.hypersim_root, split_csv=args.hypersim_split_csv, seed=args.seed)
@@ -119,17 +126,21 @@ def main(argv=None):
         return Prefetcher(MixedLoader(l1, l2, 9, 1, seed=args.seed + epoch))
 
     # --- trainer ----------------------------------------------------------
-    trainer = E2ETrainer(
-        config, unet.to(args.device), vae, empty, sched_cfg,
-        compute_dtype=torch.bfloat16 if args.half_precision else None,
-    )
+    compute_dtype = torch.bfloat16 if args.half_precision else None
+    if args.modality == "joint":
+        encoder = loading.load_image_encoder(os.path.join(path, "image_encoder"))
+        trainer = GeoWizardTrainer(config, unet.to(args.device), vae, encoder, sched_cfg, compute_dtype=compute_dtype)
+    else:
+        empty = loading.compute_empty_text_embed(os.path.join(path, "text_encoder"), device=args.device, pad_to=77)
+        trainer = E2ETrainer(config, unet.to(args.device), vae, empty, sched_cfg, compute_dtype=compute_dtype)
     state = run_training(trainer, trainer.init_state(), make_epoch_iter, resume_from=args.resume_from_checkpoint)
 
-    # --- final export (trailing spacing baked in, frozen text tower copied in)
+    # --- final export (trailing spacing baked in, the frozen tower copied in)
     final = state.ema_params if state.ema_params is not None else state.params
     export_dir = os.path.join(args.output_dir, "export")
     ckpt.export_hf_pipeline(
         export_dir, unet.config, final, vae.config, vae.state_dict(), sched_cfg, source_checkpoint=path,
+        modality=args.modality,
     )
     print(f"[train] exported HF pipeline to {export_dir}", flush=True)
 

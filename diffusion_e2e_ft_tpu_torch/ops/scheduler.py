@@ -1,5 +1,6 @@
-"""DDIM noise schedule and deterministic step, port of the DDIM subset of
-`diffusion_e2e_ft_tpu/ops/scheduler.py`.
+"""DDIM noise schedule and deterministic step, and the forward process the
+diffusion-loss trainer needs (`add_noise`, `velocity`): port of that subset
+of `diffusion_e2e_ft_tpu/ops/scheduler.py`.
 
 Timestep plans are host-side numpy (identical arithmetic to the JAX package);
 schedules are tensors on the pipeline's device. DDPM and LCM steps, and DDIM
@@ -160,6 +161,18 @@ def pred_epsilon(
     if config.prediction_type == "sample":
         return (sample - a_t.sqrt() * model_output) / b_t.sqrt()
     raise ValueError(f"Unknown prediction_type: {config.prediction_type}")
+
+
+def add_noise(schedule: Schedule, x0: torch.Tensor, noise: torch.Tensor, t: Timestep) -> torch.Tensor:
+    """Forward-process sample: sqrt(a_t) x0 + sqrt(1 - a_t) noise."""
+    a_t = _extract(schedule.alphas_cumprod, t, x0.ndim)
+    return a_t.sqrt() * x0 + (1.0 - a_t).sqrt() * noise
+
+
+def velocity(schedule: Schedule, x0: torch.Tensor, noise: torch.Tensor, t: Timestep) -> torch.Tensor:
+    """v-target: sqrt(a_t) noise - sqrt(1 - a_t) x0."""
+    a_t = _extract(schedule.alphas_cumprod, t, x0.ndim)
+    return a_t.sqrt() * noise - (1.0 - a_t).sqrt() * x0
 
 
 class StepOutput(NamedTuple):

@@ -131,6 +131,8 @@ class GeoWizardPipeline:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """rgb [N,H,W,3] in [-1,1] -> (depth [N,H,W] in [0,1], unit normals
         [N,H,W,3] in GeoWizard's sign convention), fp32."""
+        if noise not in (None, "zeros"):  # the seed-driven generator comes with ensembles
+            raise NotImplementedError(f"{noise} noise is not ported yet (slice C: multi-step, noise, ensembles)")
         cfg = self.scheduler_config
         plan = sched_ops.make_plan(cfg, num_steps)
         n, h, w, _ = rgb.shape
@@ -178,8 +180,6 @@ class GeoWizardPipeline:
             raise ValueError("denoising_steps and ensemble_size must be >= 1")
         if ensemble_size != 1:
             raise NotImplementedError("ensembles are not ported yet (slice C: multi-step, noise, ensembles)")
-        if noise != "zeros":
-            raise NotImplementedError(f"{noise} noise is not ported yet (slice C: multi-step, noise, ensembles)")
         img = np.asarray(image)
         if img.ndim != 3 or img.shape[-1] != 3:
             raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")

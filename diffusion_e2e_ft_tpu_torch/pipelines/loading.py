@@ -331,8 +331,9 @@ def save_pipeline_dir(
     directory) copied verbatim."""
     os.makedirs(path, exist_ok=True)
     with_encoder = image_encoder_config is not None and image_encoder_state is not None
+    geowizard = with_encoder or "image_encoder" in (copy_subfolders or {})
     index = {
-        "_class_name": "GeoWizardPipeline" if with_encoder else "MarigoldPipeline",
+        "_class_name": "GeoWizardPipeline" if geowizard else "MarigoldPipeline",
         "unet": ["diffusers", "UNet2DConditionModel"],
         "vae": ["diffusers", "AutoencoderKL"],
         "scheduler": ["diffusers", scheduler_class],
@@ -365,16 +366,23 @@ def save_pipeline_dir(
             shutil.copytree(src, dst)
 
 
-def frozen_tower_subfolders(source_checkpoint: str) -> Dict[str, str]:
-    """The frozen towers a depth/normals export carries from its base checkpoint:
-    text_encoder (required), tokenizer and feature_extractor when present."""
-    src = os.path.join(source_checkpoint, "text_encoder")
+def frozen_tower_subfolders(source_checkpoint: str, modality: str = "depth") -> Dict[str, str]:
+    """The frozen towers a final export carries from its base checkpoint:
+    depth / normals runs need text_encoder (tokenizer and feature_extractor
+    when present), joint (GeoWizard) runs image_encoder (feature_extractor
+    when present). Raises if the required tower is missing from the source."""
+    if modality == "joint":
+        required, optional = "image_encoder", ("feature_extractor",)
+    else:
+        required, optional = "text_encoder", ("tokenizer", "feature_extractor")
+    src = os.path.join(source_checkpoint, required)
     if not os.path.isdir(src):
         raise FileNotFoundError(
-            f"base checkpoint {source_checkpoint} has no text_encoder/ subfolder; the final export must include it"
+            f"base checkpoint {source_checkpoint} has no {required}/ subfolder; the final export for "
+            f"modality={modality!r} must include it"
         )
-    out = {"text_encoder": src}
-    for sub in ("tokenizer", "feature_extractor"):
+    out = {required: src}
+    for sub in optional:
         if os.path.isdir(os.path.join(source_checkpoint, sub)):
             out[sub] = os.path.join(source_checkpoint, sub)
     return out

@@ -136,6 +136,8 @@ class MarigoldPipeline:
     ) -> torch.Tensor:
         """rgb [B,H,W,3] in [-1,1] -> depth [B,H,W] in [0,1] or unit normals
         [B,H,W,3] (fp32)."""
+        if noise not in (None, "zeros"):  # the seed-driven generator comes with ensembles
+            raise NotImplementedError(f"{noise} noise is not ported yet (slice C: multi-step, noise, ensembles)")
         cfg = self.scheduler_config
         if self.scheduler_type == "ddpm" and num_steps > 1:
             raise NotImplementedError("multi-step DDPM is not ported yet (slice C: multi-step, noise, ensembles)")

@@ -1,9 +1,10 @@
 """End-to-end fine-tuning: the train step (UNet -> x0 -> frozen VAE decode ->
-task loss), the optimizer with optax's semantics, the LR schedule, gradient
+task loss) for depth or normals and GeoWizard's joint one, the optimizer with optax's semantics, the LR schedule, gradient
 accumulation and EMA, checkpoints and the loop."""
 
 from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
+from diffusion_e2e_ft_tpu_torch.training.geowizard import GeoWizardTrainer
 from diffusion_e2e_ft_tpu_torch.training.lr import iter_exponential_schedule
 from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer, TrainState
 
-__all__ = ["E2ETrainer", "TrainConfig", "TrainState", "iter_exponential_schedule"]
+__all__ = ["E2ETrainer", "GeoWizardTrainer", "TrainConfig", "TrainState", "iter_exponential_schedule"]

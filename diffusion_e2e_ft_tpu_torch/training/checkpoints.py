@@ -104,16 +104,20 @@ def export_hf_pipeline(
     scheduler_config,
     scheduler_class: str = "DDPMScheduler",
     source_checkpoint: Optional[str] = None,
+    modality: str = "depth",
 ) -> None:
     """Final export in the HF pipeline layout with TRAILING spacing baked in.
-    With `source_checkpoint`, the frozen text tower (+ tokenizer) is copied in,
-    so the export is self-contained: the trained UNet expects the real
-    empty-prompt embedding."""
+    With `source_checkpoint`, the frozen towers are copied in, so the export
+    is self-contained: the text tower (+ tokenizer) for depth / normals runs,
+    the image tower (+ feature extractor) for joint runs; the trained UNet
+    expects the real empty-prompt or image embedding."""
     from diffusion_e2e_ft_tpu_torch.pipelines import loading
 
+    copy_subfolders = None
+    if source_checkpoint is not None:
+        copy_subfolders = loading.frozen_tower_subfolders(source_checkpoint, modality)
     loading.save_pipeline_dir(
         output_dir, unet_config, unet_state, vae_config, vae_state,
         dataclasses.replace(scheduler_config, timestep_spacing="trailing"),
-        scheduler_class=scheduler_class,
-        copy_subfolders=None if source_checkpoint is None else loading.frozen_tower_subfolders(source_checkpoint),
+        scheduler_class=scheduler_class, copy_subfolders=copy_subfolders,
     )

@@ -5,7 +5,10 @@ each accumulation window, periodic checkpoints with rotation, resume from
 logged loss or gradient norm is not finite.
 
 Losses stay on the device until a log step reads them, so the loop does not
-wait for the device at every micro-step.
+wait for the device at every micro-step. The loop owns the steps' random
+stream: a `torch.Generator` on the trainer's device seeded from `config.seed`
+(the JAX loop's `jax.random.key(config.seed)`), passed to every step; as in
+the JAX loop, it restarts from the seed on resume.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ def run_training(
             state = ckpt.restore_checkpoint(path, state)
             print(f"[train] resumed from {path} at step {state.step}", flush=True)
 
+    generator = torch.Generator(device=trainer.device).manual_seed(config.seed)
     timer = StepTimer()
     accum = config.gradient_accumulation_steps
     step, micro = state.step, state.micro_step
@@ -52,7 +56,7 @@ def run_training(
         epoch = 0
         while step < config.max_train_steps:
             for batch in make_epoch_iter(epoch):
-                state, metrics = trainer.train_step(state, batch)
+                state, metrics = trainer.train_step(state, batch, generator)
                 timer.tick()
                 window_losses.append(metrics["loss"])
                 micro += 1

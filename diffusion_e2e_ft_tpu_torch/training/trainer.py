@@ -23,17 +23,24 @@ bf16 with fp32 params; the frozen VAE keeps its fp32 weights too. The losses
 run in fp32.
 
 The frozen VAE: the trainer runs its own module over the caller's weights
-(`frozen_vae`), with `fused_gn_conv` on when `fused_vae_kernels` is (the
+(`frozen_copy`), with `fused_gn_conv` on when `fused_vae_kernels` is (the
 default, as in the JAX trainer): on the card its resnet pairs launch the
 fused GroupNorm+SiLU -> conv kernels (`kernels/gn_conv.py`), on the CPU they
 run the plain composite. The caller's module is left as it was (config,
 device, mode, requires_grad), so a serving pipeline that shares it keeps its
 own path.
 
-Not ported here, each raising `NotImplementedError` naming its slice: gaussian
-and pyramid noise with the pyramid schedule bank (slice C), the joint
-GeoWizard modality (slice B), `adam_mu_dtype` and the JAX remat policies
-(slice D3). Data-parallel `shard` / `place_frozen` belong to slice F.
+Noise: zeros (the default), gaussian, or pyramid noise drawn from a
+`torch.Generator` on the trainer's device that the caller passes to each step
+(`run_training` seeds one from `config.seed`). The pyramid keeps the JAX
+trainer's schedule bank: 16 rows of octave scales drawn once from
+`np.random.default_rng(config.seed)`, one row picked from the generator at
+each step (a host sync: the row sets the octaves' shapes). The joint
+GeoWizard modality is `training/geowizard.py::GeoWizardTrainer`.
+
+Not ported here, each raising `NotImplementedError` naming its slice:
+`adam_mu_dtype` and the JAX remat policies (slice D3). Data-parallel `shard`
+/ `place_frozen` belong to slice F.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition
 from diffusion_e2e_ft_tpu_torch.ops import losses as L
+from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
 from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
 from diffusion_e2e_ft_tpu_torch.training.lr import iter_exponential_schedule
@@ -66,16 +74,17 @@ class TrainState:
     ema_params: Optional[Dict[str, torch.Tensor]] = None
 
 
-def check_ported(config: TrainConfig, device: torch.device) -> None:
-    """Raise for the options this port does not run yet, naming their slice."""
-    if config.modality == "joint":
-        raise NotImplementedError("modality='joint' (GeoWizard) is not ported yet (slice B)")
-    if config.modality not in ("depth", "normals"):
+def check_ported(
+    config: TrainConfig, device: torch.device, modalities: Tuple[str, ...] = ("depth", "normals")
+) -> None:
+    """Raise for a modality outside `modalities` (the trainer's own) and for
+    the options this port does not run yet, naming their slice."""
+    if config.modality not in modalities:
+        if config.modality == "joint":
+            raise ValueError("modality='joint' is the GeoWizard trainer's: use training.geowizard.GeoWizardTrainer")
         raise ValueError(f"Unknown modality: {config.modality}")
-    if config.noise_type not in (None, "zeros"):
-        raise NotImplementedError(
-            f"noise_type={config.noise_type!r} (and the pyramid schedule bank) is not ported yet (slice C)"
-        )
+    if config.noise_type not in (None, "zeros", "gaussian", "pyramid"):
+        raise ValueError(f"Unknown noise type: {config.noise_type}")
     if config.adam_mu_dtype is not None:
         raise NotImplementedError("adam_mu_dtype is not ported yet (slice D3)")
     if config.remat_policy is not None:
@@ -85,19 +94,28 @@ def check_ported(config: TrainConfig, device: torch.device) -> None:
         )
 
 
-def frozen_vae(vae: AutoencoderKL, fused: bool, device: torch.device) -> AutoencoderKL:
-    """A frozen (eval, no grad) module of its own on `device`, with
-    `fused_gn_conv=fused`, over `vae`'s weights: their storage is shared when
-    `vae` already lies on `device`, copied there when not. `vae` itself is
-    not changed."""
+def frozen_copy(module: torch.nn.Module, device: torch.device, config=None) -> torch.nn.Module:
+    """A frozen (eval, no grad) module of its own on `device`, built from
+    `config` (default: `module.config`) over `module`'s weights: their storage
+    is shared when `module` already lies on `device`, copied there when not.
+    `module` itself is not changed."""
     with torch.device("meta"):
-        own = AutoencoderKL(dataclasses.replace(vae.config, fused_gn_conv=fused))
-    own.load_state_dict(vae.state_dict(), assign=True)
+        own = type(module)(module.config if config is None else config)
+    own.load_state_dict(module.state_dict(), assign=True)
     return own.to(device).eval().requires_grad_(False)
+
+
+def pyramid_scale_bank(seed: int, base: float, spread: float, rows: int = 16, octaves: int = 10) -> np.ndarray:
+    """The JAX trainer's pyramid-noise schedule bank: `rows` x `octaves` octave
+    scales r ~ U[base, base + spread), from `np.random.default_rng(seed)`."""
+    return np.random.default_rng(seed).random((rows, octaves)) * spread + base
 
 
 class E2ETrainer:
     """Runs the E2E fine-tuning step for one UNet against a frozen VAE."""
+
+    MODALITIES: Tuple[str, ...] = ("depth", "normals")
+    PYRAMID_BANK = (2.0, 2.0)  # octave scales r ~ U[2, 4] (base, spread)
 
     def __init__(
         self,
@@ -110,17 +128,19 @@ class E2ETrainer:
         compute_dtype: Optional[torch.dtype] = None,
     ):
         self.device = next(unet.parameters()).device
-        check_ported(config, self.device)
+        check_ported(config, self.device, self.MODALITIES)
         self.config = config
         self.compute_dtype = compute_dtype
         self.unet = unet.float().requires_grad_(True)
-        self.vae = frozen_vae(vae, config.fused_vae_kernels or vae.config.fused_gn_conv, self.device)
+        fused = config.fused_vae_kernels or vae.config.fused_gn_conv
+        self.vae = frozen_copy(vae, self.device, dataclasses.replace(vae.config, fused_gn_conv=fused))
         self.empty_text_embed = torch.as_tensor(np.asarray(empty_text_embed), dtype=torch.float32).to(self.device)
         self.scheduler_config = scheduler_config or sched_ops.SchedulerConfig(
             prediction_type=config.prediction_type
         )
         self.schedule = sched_ops.make_schedule(self.scheduler_config, device=self.device)
         self.latent_scale = latent_scale
+        self.pyramid_scale_bank = pyramid_scale_bank(config.seed, *self.PYRAMID_BANK)
         c = config
         # the reference scales schedule lengths by the data-parallel degree
         self.lr_schedule = iter_exponential_schedule(
@@ -153,32 +173,66 @@ class E2ETrainer:
     def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
         return (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(self.device, dtype)
 
-    def loss(self, batch: Mapping[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _make_noisy_latents(
+        self, shape, generator: Optional[torch.Generator], timesteps: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """The noise latent of `config.noise_type`, fp32 NCHW. `timesteps`
+        scales the pyramid's octaves by t/1000 (GeoWizard); None is the
+        Marigold / SD variant."""
+        nt = self.config.noise_type
+        if nt is None or nt == "zeros":
+            return torch.zeros(shape, device=self.device)
+        if generator is None:
+            raise ValueError(f"noise_type={nt!r} draws from a torch.Generator: pass one to the step")
+        if nt == "gaussian":
+            return noise_ops.gaussian(generator, shape)
+        # pyramid: a bank row from the generator sets the octave sizes
+        row = int(torch.randint(len(self.pyramid_scale_bank), (), generator=generator, device=generator.device))
+        sizes = noise_ops._octave_sizes(shape[2], shape[3], self.pyramid_scale_bank[row])
+        base, octaves = noise_ops.pyramid_draws(generator, shape, sizes)
+        ts = None if timesteps is None else timesteps.float() / 1000.0
+        return noise_ops.pyramid_compose(base, octaves, 0.9, ts)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Frozen VAE encode of NCHW images (no gradient into the encoder), scaled, fp32."""
+        with torch.no_grad():
+            return (self.vae.encode_mean(x) * self.latent_scale).float()
+
+    def _unet(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor, *class_labels) -> torch.Tensor:
+        if self.config.gradient_checkpointing:
+            return checkpoint(self.unet, x, t, context, *class_labels, use_reentrant=False)
+        return self.unet(x, t, context, *class_labels)
+
+    def _decode(self, x0: torch.Tensor) -> torch.Tensor:
+        """Frozen VAE decode of x0 inside the differentiated graph -> [B, H, W, 3] fp32."""
+        z = x0 / self.latent_scale
+        if self.config.vae_decode_checkpoint:
+            decoded = checkpoint(self.vae.decode, z, use_reentrant=False)
+        else:
+            decoded = self.vae.decode(z)
+        return decoded.float().permute(0, 2, 3, 1)
+
+    def loss(
+        self, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None, *,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The task loss of one batch: rgb [B,H,W,3] in [-1,1], val_mask [B,H,W]
-        bool, target [B,H,W] (depth) or [B,H,W,3] (normals); numpy or torch."""
+        bool, target [B,H,W] (depth) or [B,H,W,3] (normals); numpy or torch.
+        The noise latent is drawn from `generator` unless given as `noise`."""
         c = self.config
         rgb = self._tensor(batch["rgb"], torch.float32).permute(0, 3, 1, 2)
         mask = self._tensor(batch["val_mask"], torch.bool)
         target = self._tensor(batch["target"], torch.float32)
         b = rgb.shape[0]
         with self._autocast():
-            with torch.no_grad():  # frozen VAE encode: no gradient into the encoder
-                rgb_latents = (self.vae.encode_mean(rgb) * self.latent_scale).float()
+            rgb_latents = self._encode(rgb)
             t = torch.full((b,), self.scheduler_config.num_train_timesteps - 1, dtype=torch.long, device=self.device)
-            noisy = torch.zeros_like(rgb_latents)
+            noisy = self._make_noisy_latents(rgb_latents.shape, generator) if noise is None else noise.to(rgb_latents)
             context = self.empty_text_embed.expand(b, -1, -1)
             unet_in = torch.cat([rgb_latents, noisy], dim=1) if c.noise_type is not None else rgb_latents
-            if c.gradient_checkpointing:
-                model_pred = checkpoint(self.unet, unet_in, t, context, use_reentrant=False)
-            else:
-                model_pred = self.unet(unet_in, t, context)
+            model_pred = self._unet(unet_in, t, context)
             x0 = sched_ops.pred_original_sample(self.scheduler_config, self.schedule, model_pred.float(), t, noisy)
-            z = x0 / self.latent_scale
-            if c.vae_decode_checkpoint:
-                decoded = checkpoint(self.vae.decode, z, use_reentrant=False)
-            else:
-                decoded = self.vae.decode(z)
-        decoded = decoded.float().permute(0, 2, 3, 1)  # [B, H, W, 3]
+            decoded = self._decode(x0)  # [B, H, W, 3]
 
         if c.modality == "depth":
             est = decoded.mean(dim=-1).clamp(-1.0, 1.0)
@@ -192,11 +246,12 @@ class E2ETrainer:
         return loss, {"loss": loss.detach()}
 
     def value_and_grad(
-        self, batch: Mapping[str, Any]
+        self, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None, **explicit
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """(loss, metrics, gradient of the loss by UNet parameter name)."""
+        """(loss, metrics, gradient of the loss by UNet parameter name);
+        `explicit` goes to `loss` (the tests' fixed draws)."""
         names, params = zip(*self.unet.named_parameters())
-        loss, metrics = self.loss(batch)
+        loss, metrics = self.loss(batch, generator, **explicit)
         grads = torch.autograd.grad(loss, params, materialize_grads=True)
         return loss.detach(), metrics, dict(zip(names, grads))
 
@@ -204,12 +259,15 @@ class E2ETrainer:
     # Train step
     # ------------------------------------------------------------------
 
-    def train_step(self, state: TrainState, batch: Mapping[str, Any]) -> Tuple[TrainState, Dict[str, Any]]:
-        """One micro-batch. With gradient accumulation the parameters move only
-        at every K-th call (optax.MultiSteps semantics). Metrics stay on the
-        device: `loss` and `grad_norm` (the raw micro-batch gradient's global
-        norm, before clipping) are tensors; `lr_step` is an int."""
-        _, metrics, grads = self.value_and_grad(batch)
+    def train_step(
+        self, state: TrainState, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None
+    ) -> Tuple[TrainState, Dict[str, Any]]:
+        """One micro-batch; gaussian and pyramid noise draw from `generator`
+        (zeros noise ignores it). With gradient accumulation the parameters
+        move only at every K-th call (optax.MultiSteps semantics). Metrics stay
+        on the device: the losses and `grad_norm` (the raw micro-batch
+        gradient's global norm, before clipping) are tensors; `lr_step` is an int."""
+        _, metrics, grads = self.value_and_grad(batch, generator)
         metrics["grad_norm"] = global_norm(list(grads.values()))
         self.optimizer.update(grads, state.opt_state, state.params)
         micro = state.micro_step + 1

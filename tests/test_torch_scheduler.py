@@ -65,3 +65,16 @@ def test_batched_timesteps_match():
     r = ts.ddim_step(tc, ts.make_schedule(tc), torch.from_numpy(out), torch.from_numpy(t), torch.from_numpy(prev),
                      torch.from_numpy(sample))
     np.testing.assert_allclose(r.prev_sample.numpy(), np.asarray(j.prev_sample), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("fn", ["add_noise", "velocity"])
+@pytest.mark.parametrize("t", [999, 500, 0, np.asarray([999, 3, 640])], ids=["999", "500", "0", "batch"])
+def test_forward_process_matches(fn, t):
+    """The diffusion-loss trainer's add_noise and v-target: [B, C, H, W] here,
+    [B, H, W, C] in the JAX package (t broadcasts over the trailing dims)."""
+    jc, tc = _cfgs()
+    rng = np.random.default_rng(5)
+    x0, noise = (rng.standard_normal((3, 4, 5, 6)).astype(np.float32) for _ in range(2))
+    want = getattr(js, fn)(js.make_schedule(jc), jnp.asarray(x0), jnp.asarray(noise), jnp.asarray(t))
+    got = getattr(ts, fn)(ts.make_schedule(tc), torch.from_numpy(x0), torch.from_numpy(noise), torch.as_tensor(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)

@@ -2,7 +2,7 @@
 CPU, fp32, with the same seeded weights (through the port's converter) and
 the same numpy batches: the LR schedule, the config's JSON form, one step's
 loss and every gradient leaf (depth and normals, with and without UNet
-checkpointing), the parameters and EMA after two optimizer steps with K=1 and
+checkpointing; gaussian noise), the parameters and EMA after two optimizer steps with K=1 and
 K=2 micro-steps (optax's clip, AdamW and MultiSteps semantics), the
 all-invalid mask, `fused_vae_kernels` on the CPU (against the plain path and
 against the JAX trainer's fused VAE), and the options the port raises on.
@@ -133,6 +133,28 @@ def test_params_after_two_optimizer_steps_match_jax(weights, accum):
     assert max(float((state.params[n].detach() - initial[n]).abs().max()) for n in initial) > 1e-4  # it trained
 
 
+def test_gaussian_noise_loss_and_grads_match_jax(weights):
+    """Non-zero noise through x0 recovery: the noise latent the JAX trainer
+    draws from its key, fed to the port (the streams differ; the draws, the
+    pyramid's included, are held in tests/test_torch_noise.py)."""
+    cfg = dict(noise_type="gaussian", gradient_checkpointing=False, fused_vae_kernels=False,
+               gradient_accumulation_steps=1)
+    jt, up, pt = trainers(weights, **cfg)
+    batch = make_batch("depth", seed=6)
+    key = jax.random.key(3)
+    (want_loss, _), want_grads = jax.jit(jax.value_and_grad(jt._loss, has_aux=True))(
+        up, jt._frozen(), {k: jnp.asarray(v) for k, v in batch.items()}, key
+    )
+    noise = np.array(jt._make_noisy_latents(key, (B, H // 2, W // 2, 4)))  # the two-level VAE: 2x
+    assert np.abs(noise).max() > 0
+    loss, _, grads = pt.value_and_grad(batch, noise=torch.from_numpy(np.ascontiguousarray(np.moveaxis(noise, -1, 1))))
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    want_grads = state_dict(want_grads)
+    for name, g in grads.items():
+        bound = 1e-4 * max(1.0, float(want_grads[name].abs().max()))
+        assert float((g - want_grads[name]).abs().max()) <= bound, name
+
+
 def test_all_invalid_mask_zero_loss_no_nan(weights):
     _, _, pt = trainers(weights, gradient_accumulation_steps=1, fused_vae_kernels=False, lr_warmup_steps=0)
     batch = make_batch("depth")
@@ -193,11 +215,11 @@ def test_trainer_leaves_callers_vae_unchanged(weights):
 @pytest.mark.parametrize(
     "override,device,error,match",
     [
-        (dict(noise_type="gaussian"), "cpu", NotImplementedError, "slice C"),
-        (dict(noise_type="pyramid"), "cpu", NotImplementedError, "slice C"),
+        (dict(noise_type="gaussian"), "cpu", None, None),  # ported with the trainers' noise: no error
+        (dict(noise_type="pyramid"), "cpu", None, None),
         (dict(adam_mu_dtype="bfloat16"), "cpu", NotImplementedError, "slice D3"),
         (dict(remat_policy="dots"), "cpu", NotImplementedError, "remat_policy=None"),
-        (dict(modality="joint"), "cpu", NotImplementedError, "slice B"),
+        (dict(modality="joint"), "cpu", ValueError, "GeoWizardTrainer"),  # the joint trainer's modality
         (dict(fused_vae_kernels=True), "cuda", None, None),  # slice D2 is ported: no error
         (dict(modality="segmentation"), "cpu", ValueError, "Unknown modality"),
     ],
