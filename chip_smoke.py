@@ -89,8 +89,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights, on synthetic joint batches, with the launches of each kernel per
    step (those of phase 8: the decode is one call at 2B), ms/step, img/s and
    peak device memory; then a few diffusion-loss steps (two encodes, no
-   decode) and a few pyramid-noise steps, each with its launches.
+   decode) and a few pyramid-noise steps, each with its launches;
+14. slice C's parity, fp32 with TF32 off: a full-width SD2 Marigold with
+   seeded random weights at 256x256 on the CPU (plain path) and the GPU
+   (kernels), given the same explicit draws: DDIM, ancestral DDPM and LCM at
+   3 steps, then a 3-member pyramid-noise ensemble, its members bounded as
+   phase 5; `combine_depths` on the CPU's BFGS (s, t), on the card, held to
+   the CPU's at 1e-5 on the same members and within the bound that the
+   members' error implies on the card's own; and the whole
+   `ensemble_depths` within the BFGS drift bound;
+15. slice C's main path, bf16, on phase 6's HF directory loaded again with
+   `from_hf_dir`: (a) Marigold's multi-step baseline (480x640 at
+   processing_res 0, 50-step trailing DDIM, ensemble 10, pyramid noise,
+   seed 1234, `find_batch_size`'s batch), a first request and six warm
+   ones (the last with another seed) with their latency (median, min, max),
+   kernel 1's launches a request against the count from the sites, peak
+   memory, the BFGS host time, the same bits for the same seed and other
+   bits for another; (b) the same weights with an `LCMScheduler` config, 4
+   steps, ensemble 4, gaussian noise, 768x768; (c) after phase 11, on its
+   pipeline, a GeoWizard ensemble (576x768, 10 steps, ensemble 10, pyramid
+   noise, 5 members a call). The shapes kernel 1 ran at in (a)-(c) must be
+   those phases 3 and 3c held against the plain version.
 
+Phase 3c runs the forward kernel at every shape phase 15's requests send
+it, worked out from their sizes: the baseline's chunk of 10 at 480x640
+([10, 4800, 5, 64], [10, 1200, 10, 64], [10, 300, 20, 64], the decoder's
+[10, 4800, 1, 512], the encoder's [1, 4800, 1, 512]), the LCM request's 4
+at 768x768 and the GeoWizard ensemble's 5 at 576x768 (joint [5, 13824, 8,
+40], [5, 3456, 8, 80], [5, 864, 8, 160], the decoder's [10, 6912, 1, 512]),
+and at the table's batch for 10 members at 768x768 ([10, 9216, 5, 64],
+[10, 9216, 1, 512], on no phase 15 request), against the plain version row
+by row.
 Phases 3, 4 and 4b include the joint step's new shapes: the VAE mid
 attention at [2, 4800, 1, 512] and [4, 4800, 1, 512] (the decoder at 2B
 under grad) and every GN -> conv shape of the encoder at B = 2 and 4 and the
@@ -106,6 +135,7 @@ last line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -244,6 +274,29 @@ GEO_PARITY_LEAVES = ["conv_in.weight", "class_embedding.linear_1.weight"] + [
 ]
 AB_STEPS = 4  # steps of each arm of the fused / unfused A/B (the first is the warm-up)
 V2_LOSS_BOUND = 1e-2  # bf16 step loss, v2 vs v1 relative: a, b folded in another order, through bf16 networks
+
+
+# Slice C. Marigold's multi-step baseline as the repo's paper runs it
+# (experiments/depth/eval_args/marigold_diffusion_baseline/11_infer_nyu.sh: trailing DDIM, 50 steps,
+# ensemble 10, pyramid noise, --processing_res 0 on NYU's native 480x640, seed 1234), with the members a
+# call from `find_batch_size`; an LCM request; and a GeoWizard ensemble
+BASELINE_HW = (480, 640)
+BASELINE = dict(denoising_steps=50, ensemble_size=10, noise="pyramid", processing_res=0, batch_size=0)
+BASELINE_SEED = 1234
+LCM_HW = (768, 768)
+LCM_REQUEST = dict(denoising_steps=4, ensemble_size=4, noise="gaussian", processing_res=768, batch_size=0)
+GEO_ENSEMBLE_HW = (576, 768)
+GEO_ENSEMBLE = dict(denoising_steps=10, ensemble_size=10, noise="pyramid", processing_res=768, batch_size=5)
+BASELINE_WARM = 5  # warm baseline requests with the same seed, after a first one; then one with another seed
+SLICE_C_STEPS = 3  # phase 14's denoising steps a run
+UNET_SITES_768 = SITES_768 - 2  # UNet self-attention sites in the envelope at 768x768 (9216, 2304, 576 tokens)
+# ensemble_depths, GPU vs CPU: scipy's BFGS takes numerical gradients of a float32 objective with steps of
+# 1.5e-8, below its rounding, so two summation orders of the same objective walk to other (s, t); the
+# same bound as tests/test_torch_ensemble.py (JAX vs the port), from the spread measured there
+ENSEMBLE_DRIFT = 0.1
+# combine_depths (median / MAD or mean / std, min-max) on the same members and (s, t), GPU vs CPU: float32
+# reductions in another order; the tests hold the port's to the JAX package's at the same bound
+COMBINE_BOUND = 1e-5
 
 
 def pair_launches(*parts) -> dict:
@@ -815,21 +868,22 @@ def write_checkpoint(path: str, pipe, text_config) -> None:
     })
 
 
-def phase_serving(fa, fp32_pipe) -> int:
+def phase_serving(fa, fp32_pipe, ckpt: str) -> int:
+    """Slice A's main path. Writes the fp32 pipeline's weights to `ckpt` (an
+    HF directory that phase 15 loads again)."""
     from diffusion_e2e_ft_tpu_torch.cli.serve import PipelineService
     from diffusion_e2e_ft_tpu_torch.models.clip import CLIPTextConfig
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
 
-    with tempfile.TemporaryDirectory() as ckpt:
-        t0 = time.perf_counter()
-        write_checkpoint(ckpt, fp32_pipe, CLIPTextConfig())  # SD2's OpenCLIP-H text tower
-        del fp32_pipe
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        pipe = MarigoldPipeline.from_hf_dir(ckpt, device="cuda", dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        print(f"[serve] wrote checkpoint {t1 - t0:.1f} s, from_hf_dir (bf16, cuda) "
-              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    write_checkpoint(ckpt, fp32_pipe, CLIPTextConfig())  # SD2's OpenCLIP-H text tower
+    del fp32_pipe
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    pipe = MarigoldPipeline.from_hf_dir(ckpt, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[serve] wrote checkpoint {t1 - t0:.1f} s, from_hf_dir (bf16, cuda) "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
 
     service = PipelineService(pipe, processing_res=768, denoise_steps=1)
     t0 = time.perf_counter()
@@ -1166,11 +1220,12 @@ def phase_geowizard_parity(fa):
     return gpu
 
 
-def phase_geowizard_serving(fa, fp32_pipe) -> dict:
+def phase_geowizard_serving(fa, fp32_pipe) -> tuple:
     """Slice B's main path: an HF directory of the parity run's weights, loaded
     with `GeoWizardPipeline.from_hf_dir` in bf16 on the default device, and
     joint requests at 768x768 and 576x768; then one 768x768 request with
-    E2EFT_FA_HP=2. Returns the kernel launches of the path's run."""
+    E2EFT_FA_HP=2. Returns the kernel launches of the path's run and the
+    bf16 pipeline."""
     from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline, loading
 
     with tempfile.TemporaryDirectory() as ckpt:
@@ -1245,7 +1300,7 @@ def phase_geowizard_serving(fa, fp32_pipe) -> dict:
     print(f"[geo-serve] peak device memory {peak:.3f} GiB over {len(requests)} requests; "
           f"E2EFT_FA_HP=2 768x768: launches {done}, max|d| vs hp=1 {mh_err:.3e}; "
           f"the path's kernel launches {launches}", flush=True)
-    return launches
+    return launches, pipe
 
 
 def joint_batch(rng, b: int, h: int, w: int) -> dict:
@@ -1389,6 +1444,355 @@ def phase_geowizard_train(unet, vae, image_encoder) -> dict:
     return launches
 
 
+def plain_by_row(fa, q, k, v, dtype=None) -> torch.Tensor:
+    """The plain version one batch row at a time, in `dtype` (default: the
+    inputs'): a whole [10, 9216, 5, 64] call would hold 17 GB of fp32 logits."""
+    return torch.cat([fa.flash_attention_reference(*(t[i:i + 1].to(dtype or t.dtype) for t in (q, k, v)))
+                      for i in range(q.shape[0])])
+
+
+def slice_c_attention_cases() -> dict:
+    """{(B, L, N, D): the phase 15 request that first sends kernel 1 that
+    shape}, from the requests' own sizes: each chunk of members runs the
+    UNet's self-attention levels 0-3 (those in the kernels' envelope) and the
+    VAE decoder's mid block at the chunk's batch, and the encoder's mid block
+    at B = 1 (one encode a chunk, shared by its members). (a) the baseline,
+    `find_batch_size`'s members a call; (b) the LCM request, the same; (c)
+    the GeoWizard ensemble, `batch_size` members a call: joint attention over
+    each member's task pair (2L tokens at 8 heads, d 40 / 80 / 160) and the
+    decode at 2N."""
+    from diffusion_e2e_ft_tpu_torch.kernels import in_kernel_envelope
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    def chunks(members: int, batch: int) -> set:
+        return {batch, members % batch} - {0}
+
+    cases: dict = {}
+
+    def add(label, hw, batch, heads, head_dims, pair):
+        h, w = hw[0] // 8, hw[1] // 8
+        for level, d in enumerate(head_dims):
+            tokens = -(-h // 2**level) * -(-w // 2**level)
+            shape = (batch, pair * tokens, heads[level], d)
+            if in_kernel_envelope(shape[1], shape[1], d):
+                cases.setdefault(shape, label)
+        for shape in ((1, h * w, 1, 512), (pair * batch, h * w, 1, 512)):  # VAE encoder, decoder
+            cases.setdefault(shape, label)
+
+    sd2 = ((5, 10, 20, 20), (64, 64, 64, 64))  # heads and head dim, levels 0-3
+    for label, hw, kw in (("baseline", BASELINE_HW, BASELINE), ("LCM", LCM_HW, LCM_REQUEST)):
+        members = kw["ensemble_size"]
+        for batch in chunks(members, MarigoldPipeline.find_batch_size(members, max(hw))):
+            add(label, hw, batch, *sd2, pair=1)
+    for batch in chunks(GEO_ENSEMBLE["ensemble_size"], GEO_ENSEMBLE["batch_size"]):
+        add("GeoWizard", GEO_ENSEMBLE_HW, batch, (8, 8, 8, 8), (40, 80, 160, 160), pair=2)
+    return cases
+
+
+@contextlib.contextmanager
+def recorded_shapes(fa):
+    """The (B, L, N, D) of every `flash_attention` call made inside the
+    block (Lq != Lk adds (B, Lq, Lk, N, D)), as a set."""
+    shapes, forward = set(), fa.flash_attention
+
+    def record(q, k, v, scale=None):
+        b, lq, n, d = q.shape
+        shapes.add((b, lq, n, d) if k.shape[1] == lq else (b, lq, k.shape[1], n, d))
+        return forward(q, k, v, scale)
+
+    fa.flash_attention = record
+    try:
+        yield shapes
+    finally:
+        fa.flash_attention = forward
+
+
+def phase_batched_kernels(fa) -> tuple:
+    """Phase 3c: the forward kernel at every shape phase 15's requests send it
+    (those phase 3 does not check already), and at the table's batch for a
+    10-member ensemble at 768x768, against the plain version (fp32, row by
+    row), fp32 and bf16, with bf16 times beside the plain version's, the
+    library's and the bound. Returns the largest max|d| and the bf16 rows."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst, rows = 0.0, []
+    cases = {s: label for s, label in slice_c_attention_cases().items() if s not in ATTN_CASES}
+    # the table's batch for the baseline's 10 members at 768x768 (processing_res 768), a request phase 15
+    # does not send: UNet level 0 and the decoder's mid block
+    b768 = MarigoldPipeline.find_batch_size(BASELINE["ensemble_size"], 768)
+    cases.update({(b768, 9216, 5, 64): "table 768", (b768, 9216, 1, 512): "table 768"})
+    for dtype, bound in ((torch.float32, FP32_BOUND), (torch.bfloat16, BF16_BOUND)):
+        for shape, label in cases.items():
+            q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = plain_by_row(fa, q, k, v, torch.float32)
+            err, rel = rel_err(out, ref)
+            check(bool(torch.isfinite(out).all()), f"kernel output not finite at {shape} {dtype}")
+            check(rel <= bound, f"kernel vs plain max|d|/max|plain| {rel} > {bound} at {shape} {dtype}")
+            line = (f"[batched] {label:9s} {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e}, /max|plain| "
+                    f"{rel:.3e} (bound {bound})")
+            del ref
+            if dtype == torch.bfloat16:
+                row = {"shape": list(shape), "request": label, "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+                       "plain_ms": time_ms(lambda: plain_by_row(fa, q, k, v), reps=3),
+                       "library_ms": time_ms(lambda: sdpa(q, k, v)), "library": sdpa_backend(q, k, v),
+                       **attention_bound(shape, dtype, matmuls=2, tensors=4)}
+                line += (f"; kernel {row['ms']:.4f} ms, plain (row by row) {row['plain_ms']:.4f}, library "
+                         f"({row['library']}) {row['library_ms']:.4f}, bound {row['bound_ms']:.4f}; kernel/library "
+                         f"{row['ms'] / row['library_ms']:.2f}, bound/kernel {row['bound_ms'] / row['ms']:.3f}")
+                rows.append(row)
+            print(line, flush=True)
+            worst = max(worst, err)
+            del q, k, v, out
+            torch.cuda.empty_cache()
+    return worst, rows
+
+
+def request_launches(chunks: int, steps: int, unet_sites: int) -> int:
+    """Kernel 1's launches of one request: each chunk of members encodes once
+    (the VAE encoder's mid block), runs the UNet `steps` times and decodes once."""
+    return chunks * (steps * unet_sites + 2)
+
+
+def phase_slice_c_parity(fa) -> None:
+    """Phase 14: slice C's device bodies, fp32, TF32 off, a full-width SD2
+    Marigold with seeded random weights at 256x256 on the CPU (plain path) and
+    the GPU (kernels) with the same explicit draws: DDIM, DDPM and LCM at 3
+    steps, one member each; then a 3-member pyramid-noise DDIM ensemble,
+    member by member, through `combine_depths` on the CPU's (s, t) and
+    through `ensemble_depths` on each side."""
+    from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
+    from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    t0 = time.perf_counter()
+    cpu = MarigoldPipeline.from_random(UNetConfig.sd2(), VAEConfig(), seed=4, device="cpu")
+    t1 = time.perf_counter()
+    img = np.random.default_rng(9).integers(0, 256, (1, 256, 256, 3)).astype(np.float32)
+    rgb = torch.from_numpy(img / 255.0 * 2.0 - 1.0)
+    gen = torch.Generator().manual_seed(9)
+    latent_shape = (4, 32, 32)
+    runs = {}
+    for kind in ("ddim", "ddpm", "lcm"):
+        pipe = MarigoldPipeline(cpu.unet, cpu.vae, cpu.scheduler_config, cpu.empty_text_embed, device="cpu",
+                                scheduler_type=kind)
+        latent0, step_noise = noise_ops.member_draws("gaussian", gen, 1, latent_shape,
+                                                     pipe.step_noises(SLICE_C_STEPS))
+        runs[kind] = (latent0, step_noise, pipe.infer(rgb, SLICE_C_STEPS, latent0=latent0, step_noise=step_noise))
+    members = 3
+    ens_latent0, _ = noise_ops.member_draws("pyramid", gen, members, latent_shape)
+    ens_want = cpu.infer(rgb, SLICE_C_STEPS, latent0=ens_latent0)
+    print(f"[slice-c] cpu fp32: random init {t1 - t0:.1f} s, {3 * SLICE_C_STEPS + SLICE_C_STEPS} UNet calls "
+          f"(3 runs + a {members}-member batch) {time.perf_counter() - t1:.1f} s", flush=True)
+
+    gpu = MarigoldPipeline(cpu.unet, cpu.vae, cpu.scheduler_config, cpu.empty_text_embed, device="cuda",
+                           dtype=torch.float32)
+    bound = E2E_BOUNDS["depth"]
+    for kind, (latent0, step_noise, want) in runs.items():
+        pipe = MarigoldPipeline(gpu.unet, gpu.vae, gpu.scheduler_config, gpu.empty_text_embed, device="cuda",
+                                scheduler_type=kind)
+        reset_launches()
+        got = pipe.infer(rgb.cuda(), SLICE_C_STEPS, latent0=latent0.cuda(), step_noise=[n.cuda() for n in step_noise])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        err = (got.cpu() - want).abs().max().item()
+        expect = request_launches(1, SLICE_C_STEPS, UNET_SITES_256)
+        print(f"[slice-c] fp32 256x256 {kind} {SLICE_C_STEPS} steps ({len(step_noise)} step noises), gpu vs cpu: "
+              f"max|d|={err:.3e} (bound {bound}), kernel launches {launches['flash_attention_fwd']}", flush=True)
+        check(bool(torch.isfinite(got).all()), f"gpu {kind} depth not finite")
+        check(err <= bound, f"fp32 {kind} gpu vs cpu max|d| {err} > {bound}")
+        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": expect}, f"{kind}: launches {launches}")
+    reset_launches()
+    got = gpu.infer(rgb.cuda(), SLICE_C_STEPS, latent0=ens_latent0.cuda())
+    torch.cuda.synchronize()
+    launches = fa.launches["flash_attention_fwd"]
+    member_err = (got.cpu() - ens_want).abs().amax(dim=(1, 2)).tolist()
+    check(launches == request_launches(1, SLICE_C_STEPS, UNET_SITES_256), f"ensemble batch: {launches} launches")
+    check(max(member_err) <= bound, f"ensemble members gpu vs cpu max|d| {member_err} > {bound}")
+
+    t0 = time.perf_counter()
+    checks = ensemble_checks(ens_want, got, max(member_err))
+    print(f"[slice-c] fp32 256x256 {members}-member pyramid ensemble: members gpu vs cpu max|d| "
+          f"{[f'{x:.3e}' for x in member_err]} (bound {bound}), {launches} kernel launches for the batch; "
+          f"combine_depths on the cpu's BFGS (s, t), depth and uncertainty max|d|: the cpu's members on the card "
+          f"{checks['combine']:.3e} (bound {COMBINE_BOUND}), the card's members {checks['members']:.3e} (bound "
+          f"{checks['members_bound']:.3e}); ensemble_depths, the card's members on the card vs the cpu's on the "
+          f"cpu: drift max|d| {checks['drift']:.3e} (BFGS drift bound {ENSEMBLE_DRIFT}); {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(checks["finite"], "gpu ensemble not finite")
+    check(checks["combine"] <= COMBINE_BOUND, f"combine_depths gpu vs cpu, same inputs: {checks}")
+    check(checks["members"] <= checks["members_bound"], f"combine_depths on the card's members: {checks}")
+    check(checks["drift"] <= ENSEMBLE_DRIFT, f"ensemble gpu vs cpu drift: {checks}")
+
+
+def ensemble_checks(cpu_members: torch.Tensor, members: torch.Tensor, member_err: float) -> dict:
+    """`ensemble_depths` on `members` [N, H, W] (on the card) against the CPU
+    reference `cpu_members`, whose largest difference is `member_err`:
+    max |d| over depth and uncertainty of `combine_depths` given the CPU's
+    BFGS (s, t), on the CPU's members moved to the card (`combine`) and on
+    the card's own (`members`, with the bound their difference implies), and
+    of the whole `ensemble_depths` (`drift`)."""
+    from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
+
+    def max_diff(got: tuple, want: tuple) -> float:
+        return max((x.cpu() - y).abs().max().item() for x, y in zip(got, want))
+
+    s, t = ens.align_depths(cpu_members)
+    want = ens.combine_depths(cpu_members, s, t)
+    # each aligned member moves by at most e = max|s| member_err, so the median, the MAD and each min-max
+    # end by at most e, 2e and e: with R the CPU's median range, depth moves by <= 4e / (R - 2e) and the
+    # uncertainty by <= 2e (1 + max unc) / (R - 2e)
+    shift = float(np.max(np.abs(s))) * member_err
+    aligned = cpu_members * torch.as_tensor(s, dtype=torch.float32)[:, None, None] + torch.as_tensor(
+        t, dtype=torch.float32)[:, None, None]
+    med = aligned.median(dim=0).values
+    members_bound = 4 * shift * (1 + want[1].max().item()) / ((med.max() - med.min()).item() - 2 * shift)
+    got = ens.ensemble_depths(members)
+    return {
+        "combine": max_diff(ens.combine_depths(cpu_members.to(members.device), s, t), want),
+        "members": max_diff(ens.combine_depths(members, s, t), want),
+        "members_bound": members_bound + COMBINE_BOUND,
+        "drift": max_diff(got, want),
+        "finite": bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+    }
+
+
+def timed_requests(pipe, image, requests: list) -> list:
+    """[(output, ms, kernel 1's launches)] of `pipe(image, **kw)` for each kw,
+    host clock, synchronised."""
+    from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
+
+    out = []
+    for kw in requests:
+        before = fa.launches["flash_attention_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = pipe(image, color_map=None, **kw)
+        torch.cuda.synchronize()
+        out.append((result, (time.perf_counter() - t0) * 1e3, fa.launches["flash_attention_fwd"] - before))
+    return out
+
+
+def check_depth(out, hw, label: str) -> None:
+    check(out.depth_np.shape == hw and bool(np.isfinite(out.depth_np).all()), f"{label}: depth {out.depth_np.shape}")
+    check(out.depth_np.min() >= 0.0 and out.depth_np.max() <= 1.0, f"{label}: depth outside [0, 1]")
+    unc = out.uncertainty
+    check(unc is not None and unc.ndim == 2 and bool(np.isfinite(unc).all()) and unc.min() >= 0.0,
+          f"{label}: uncertainty {None if unc is None else unc.shape}")
+
+
+def phase_marigold_ensembles(fa, ckpt: str) -> int:
+    """Phase 15 (a, b), slice C's main path: the HF directory phase 6 wrote,
+    loaded with `from_hf_dir` in bf16 on the default device. (a) Marigold's
+    baseline request (50-step trailing DDIM, ensemble 10, pyramid noise,
+    480x640 at processing_res 0, seed 1234, the table's batch); (b) the same
+    weights with an `LCMScheduler` config: 4 steps, ensemble 4, gaussian
+    noise, 768x768. Returns kernel 1's launches of the path's run."""
+    from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline, loading
+
+    pipe = MarigoldPipeline.from_hf_dir(ckpt, dtype=torch.bfloat16)
+    check(pipe.device.type == "cuda" and pipe.scheduler_type == "ddim", f"{pipe.device} {pipe.scheduler_type}")
+    rng = np.random.default_rng(10)
+    image = rng.integers(0, 256, (*BASELINE_HW, 3), dtype=np.uint8)
+    members = BASELINE["ensemble_size"]
+    batch = pipe.find_batch_size(members, max(BASELINE_HW))
+    expect = request_launches(-(-members // batch), BASELINE["denoising_steps"], UNET_SITES_480x640)
+    bfgs = []
+    align = ens.align_depths
+
+    def timed_align(*args, **kw):
+        torch.cuda.synchronize()  # the members' decode may still run on the card: not the BFGS's time
+        t0 = time.perf_counter()
+        result = align(*args, **kw)
+        bfgs.append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    ens.align_depths = timed_align
+    try:
+        reset_launches()  # the main path's run starts here
+        warmup = timed_requests(pipe, image, [dict(BASELINE, seed=BASELINE_SEED)])
+        torch.cuda.reset_peak_memory_stats()
+        runs = timed_requests(pipe, image, [dict(BASELINE, seed=BASELINE_SEED)] * BASELINE_WARM
+                              + [dict(BASELINE, seed=BASELINE_SEED + 1)])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        ens.align_depths = align
+    first, first_ms, _ = warmup[0]
+    other = runs[-1][0]
+    for out, _, _ in warmup + runs:
+        check_depth(out, BASELINE_HW, "baseline")
+    ms = [t for _, t, _ in runs]
+    print(f"[slice-c] bf16 Marigold baseline 480x640, {BASELINE['denoising_steps']} steps, ensemble {members}, "
+          f"pyramid, batch {batch}: latency ms first {first_ms:.1f}, then {len(ms)} warm {[round(t, 1) for t in ms]}: "
+          f"median {statistics.median(ms):.1f}, min {min(ms):.1f}, max {max(ms):.1f} (the last: seed + 1); "
+          f"kernel 1 launches a request {[n for _, _, n in warmup + runs]} (expected {expect}); BFGS host ms "
+          f"{[round(x, 1) for x in bfgs]}; peak device memory {peak:.3f} GiB", flush=True)
+    check(all(n == expect for _, _, n in warmup + runs), f"baseline launches {[n for _, _, n in warmup + runs]} != {expect}")
+    for again, _, _ in runs[:-1]:
+        check(np.array_equal(first.depth_np, again.depth_np) and np.array_equal(first.uncertainty, again.uncertainty),
+              "two requests with the same seed gave different bits")
+    check(not np.array_equal(first.depth_np, other.depth_np), "another seed gave the same depth")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # (b) the same weights as a latent-consistency checkpoint
+    with open(os.path.join(ckpt, "scheduler", "scheduler_config.json")) as f:
+        config = loading.scheduler_config_from_hf(json.load(f))
+    with open(os.path.join(ckpt, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(loading.scheduler_config_to_hf(config, "LCMScheduler"), f)
+    lcm = MarigoldPipeline.from_hf_dir(ckpt, dtype=torch.bfloat16)
+    check(lcm.scheduler_type == "lcm" and lcm.scheduler_config == config, f"LCM load: {lcm.scheduler_type}")
+    image = rng.integers(0, 256, (*LCM_HW, 3), dtype=np.uint8)
+    members = LCM_REQUEST["ensemble_size"]
+    lcm_expect = request_launches(-(-members // lcm.find_batch_size(members, max(LCM_HW))),
+                                  LCM_REQUEST["denoising_steps"], UNET_SITES_768)
+    torch.cuda.reset_peak_memory_stats()
+    results = timed_requests(lcm, image, [dict(LCM_REQUEST, seed=s) for s in (0, 0, 1)])
+    launches = read_launches()  # ... and ends here
+    lcm_peak = torch.cuda.max_memory_allocated() / 2**30
+    for out, _, _ in results:
+        check_depth(out, LCM_HW, "LCM request")
+    print(f"[slice-c] bf16 LCM 768x768, {LCM_REQUEST['denoising_steps']} steps, ensemble {members}, gaussian: "
+          f"latency ms {[round(t, 1) for _, t, _ in results]}; kernel 1 launches a request "
+          f"{[n for _, _, n in results]} (expected {lcm_expect}); peak device memory {lcm_peak:.3f} GiB", flush=True)
+    check(all(n == lcm_expect for _, _, n in results), f"LCM launches {[n for _, _, n in results]}")
+    check(np.array_equal(results[0][0].depth_np, results[1][0].depth_np), "LCM: same seed, different bits")
+    check(not np.array_equal(results[0][0].depth_np, results[2][0].depth_np), "LCM: another seed, same depth")
+    check(launches == {**dict.fromkeys(launches, 0),
+                       "flash_attention_fwd": len(warmup + runs) * expect + len(results) * lcm_expect},
+          f"slice C's Marigold requests launched {launches}")
+    return launches["flash_attention_fwd"]
+
+
+def phase_geowizard_ensemble(fa, pipe) -> int:
+    """Phase 15 (c): a GeoWizard ensemble request on slice B's bf16 pipeline:
+    576x768, 10 DDIM steps, ensemble 10, pyramid noise, 5 members a call (a
+    2N = 10 batch through the UNet and the decode). Returns kernel 1's
+    launches of the run."""
+    image = np.random.default_rng(11).integers(0, 256, (*GEO_ENSEMBLE_HW, 3), dtype=np.uint8)
+    members, batch = GEO_ENSEMBLE["ensemble_size"], GEO_ENSEMBLE["batch_size"]
+    expect = request_launches(-(-members // batch), GEO_ENSEMBLE["denoising_steps"], GEO_SITES[GEO_ENSEMBLE_HW] - 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's run starts here
+    results = timed_requests(pipe, image, [dict(GEO_ENSEMBLE, seed=s) for s in (0, 0)])
+    launches = read_launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for out, _, _ in results:
+        check_depth(out, GEO_ENSEMBLE_HW, "GeoWizard ensemble")
+        check(out.normal_np.shape == GEO_ENSEMBLE_HW + (3,) and bool(np.isfinite(out.normal_np).all()),
+              f"GeoWizard ensemble normals {out.normal_np.shape}")
+    print(f"[slice-c] bf16 GeoWizard 576x768, {GEO_ENSEMBLE['denoising_steps']} steps, ensemble {members}, pyramid, "
+          f"batch {batch}: latency ms {[round(t, 1) for _, t, _ in results]}; kernel 1 launches a request "
+          f"{[n for _, _, n in results]} (expected {expect}); peak device memory {peak:.3f} GiB", flush=True)
+    check(all(n == expect for _, _, n in results), f"GeoWizard ensemble launches {[n for _, _, n in results]}")
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * expect}, f"launched {launches}")
+    check(np.array_equal(results[0][0].normal_np, results[1][0].normal_np), "GeoWizard: same seed, different bits")
+    return launches["flash_attention_fwd"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch; this run needs one GPU")
@@ -1414,10 +1818,22 @@ def main() -> int:
     numbers = {"flash_attention_fwd": phase_kernels(fa)}
     fwd = numbers["flash_attention_fwd"]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], phase_forward_layouts(fa))
+    batched_worst, batched_rows = phase_batched_kernels(fa)
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], batched_worst)
+    fwd["shapes"].extend(batched_rows)
     numbers.update(phase_backward(fa))
     phase_grad_route(fa)
     numbers.update(phase_gn_kernels())
-    launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa))}  # no reference kept to its weights
+    with tempfile.TemporaryDirectory() as ckpt:
+        # no reference kept to phase 5's weights; phase 15 loads them again from ckpt
+        launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa), ckpt)}
+        torch.cuda.empty_cache()
+        phase_slice_c_parity(fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with recorded_shapes(fa) as slice_c_shapes:
+            launches["flash_attention_fwd"] += phase_marigold_ensembles(fa, ckpt)  # slice C's main path
+    gc.collect()
     torch.cuda.empty_cache()
 
     from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
@@ -1436,10 +1852,16 @@ def main() -> int:
     numbers["flash_attention_fwd_mh"] = geo["flash_attention_fwd_mh"]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], geo["worst_fwd"])
     fwd["shapes"].insert(0, geo["fwd_row"])  # [1, 18432, 8, 40] beside the VAE mid block's [1, 9216, 1, 512]
-    geo_path = phase_geowizard_serving(fa, phase_geowizard_parity(fa))
-    # the forward kernel's launches: slice A's and slice B's serving runs
-    launches["flash_attention_fwd"] += geo_path["flash_attention_fwd"]
+    geo_path, geo_pipe = phase_geowizard_serving(fa, phase_geowizard_parity(fa))
+    # the forward kernel's launches: slice A's, slice B's and slice C's serving runs
+    with recorded_shapes(fa) as geo_shapes:
+        launches["flash_attention_fwd"] += geo_path["flash_attention_fwd"] + phase_geowizard_ensemble(fa, geo_pipe)
+    # phase 3 and 3c held kernel 1 against its plain version at every shape slice C's requests sent it
+    slice_c_shapes |= geo_shapes
+    check(slice_c_shapes == set(slice_c_attention_cases()),
+          f"slice C's requests sent kernel 1 {sorted(slice_c_shapes)}, phase 3c expected {sorted(slice_c_attention_cases())}")
     launches["flash_attention_fwd_mh"] = geo_path["flash_attention_fwd_mh"]
+    del geo_pipe
     gc.collect()
     torch.cuda.empty_cache()
     geo_train = phase_geowizard_train(*phase_geowizard_train_parity())  # slice B2's main path

@@ -16,6 +16,12 @@ compose part against the JAX function on the JAX draws.
 
 The octave sizes come from scales drawn on the host (`octave_scales`, one
 host sync on a CUDA generator): a size is a shape, not a tensor value.
+
+An ensemble draws member by member (`member_draws`): each member's initial
+latent is its own [1, C, h, w] draw, as in the JAX pipelines. That matters
+for the pyramid, which divides by the std of the whole tensor it made and
+draws its octave sizes per call: one batched draw would be another
+distribution.
 """
 
 from __future__ import annotations
@@ -133,3 +139,28 @@ def make_noise(
             return gaussian(generator, shape, dtype)
         return pyramid(generator, shape, dtype=dtype)
     raise ValueError(f"Unknown noise type: {noise_type}")
+
+
+def member_draws(
+    noise_type: Optional[str],
+    generator: torch.Generator,
+    members: int,
+    shape: Sequence[int],
+    num_step_noises: int = 0,
+    dtype=torch.float32,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """An ensemble chunk's draws: the initial latents [members, C, h, w] and
+    `num_step_noises` gaussian step noises of that shape (the stochastic
+    schedulers' per-step noise).
+
+    Member by member, each draw is [1, C, h, w] in fp32 on the generator's
+    device, cast to `dtype`: the member's initial latent, then its step
+    noises. So a member's draws do not depend on how the ensemble is cut into
+    chunks."""
+    one = (1, *shape)
+    latents, steps = [], []
+    for _ in range(members):
+        latents.append(make_noise(noise_type, one, torch.float32, generator.device, generator))
+        steps.append([gaussian(generator, one) for _ in range(num_step_noises)])
+    step_noise = [torch.cat([s[i] for s in steps]).to(dtype) for i in range(num_step_noises)]
+    return torch.cat(latents).to(dtype), step_noise

@@ -1,17 +1,20 @@
-"""DDIM noise schedule and deterministic step, and the forward process the
-diffusion-loss trainer needs (`add_noise`, `velocity`): port of that subset
-of `diffusion_e2e_ft_tpu/ops/scheduler.py`.
+"""Diffusion noise schedules, timestep plans and sampling steps (DDIM,
+ancestral DDPM, latent consistency), and the forward process the
+diffusion-loss trainer needs (`add_noise`, `velocity`): port of
+`diffusion_e2e_ft_tpu/ops/scheduler.py`.
 
 Timestep plans are host-side numpy (identical arithmetic to the JAX package);
-schedules are tensors on the pipeline's device. DDPM and LCM steps, and DDIM
-with eta > 0, are not ported yet.
+schedules are tensors on the pipeline's device. Where a JAX step takes a PRNG
+key, its counterpart here takes the noise tensor itself (`noise=`), drawn by
+the caller from a `torch.Generator`: the draw is the caller's, the step is
+deterministic given it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -34,6 +37,12 @@ class SchedulerConfig:
     clip_sample_range: float = 1.0
     set_alpha_to_one: bool = False
     rescale_betas_zero_snr: bool = False
+    # LCM (latent consistency) sampling parameters; only the lcm_* path reads them
+    original_inference_steps: int = 50
+    timestep_scaling: float = 10.0
+
+    def replace(self, **kw) -> "SchedulerConfig":
+        return dataclasses.replace(self, **kw)
 
 
 class Schedule(NamedTuple):
@@ -120,11 +129,16 @@ def make_plan(config: SchedulerConfig, num_inference_steps: int) -> DenoisePlan:
     return DenoisePlan(ts, previous_timesteps(config, ts, num_inference_steps))
 
 
+def _per_sample(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A scalar as it is; a per-sample [B] tensor right-padded with singleton
+    dims to broadcast over [B, ...] samples of `ndim` dims."""
+    return x if x.ndim == 0 else x.reshape(x.shape + (1,) * (ndim - x.ndim))
+
+
 def _extract(arr: torch.Tensor, t: Timestep, ndim: int) -> torch.Tensor:
-    """arr[t] (clipped to range), right-padded with singleton dims for a batch of t."""
+    """arr[t] (clipped to range), per sample for a batch of t."""
     t = torch.as_tensor(t, device=arr.device).long().clamp(0, arr.shape[0] - 1)
-    out = arr[t]
-    return out if out.ndim == 0 else out.reshape(out.shape + (1,) * (ndim - out.ndim))
+    return _per_sample(arr[t], ndim)
 
 
 def pred_original_sample(
@@ -183,19 +197,91 @@ class StepOutput(NamedTuple):
 def _alpha_prev(schedule: Schedule, prev_t: Timestep, ndim: int) -> torch.Tensor:
     prev = torch.as_tensor(prev_t, device=schedule.alphas_cumprod.device)
     a_prev = _extract(schedule.alphas_cumprod, prev.clamp_min(0), ndim)
-    cond = prev < 0
-    if cond.ndim > 0:
-        cond = cond.reshape(cond.shape + (1,) * (ndim - cond.ndim))
-    return torch.where(cond, schedule.final_alpha_cumprod, a_prev)
+    return torch.where(_per_sample(prev < 0, ndim), schedule.final_alpha_cumprod, a_prev)
 
 
 def ddim_step(
     config: SchedulerConfig, schedule: Schedule, model_output: torch.Tensor, t: Timestep,
-    prev_t: Timestep, sample: torch.Tensor,
+    prev_t: Timestep, sample: torch.Tensor, *, eta: float = 0.0, noise: Optional[torch.Tensor] = None,
 ) -> StepOutput:
-    """One deterministic (eta = 0) DDIM update x_t -> x_{prev_t}, plus the x0 estimate."""
+    """One deterministic (eta = 0) or stochastic DDIM update x_t -> x_{prev_t},
+    plus the x0 estimate. eta > 0 needs `noise` (shaped as `sample`)."""
     x0 = pred_original_sample(config, schedule, model_output, t, sample)
     eps = pred_epsilon(config, schedule, model_output, t, sample)
     a_prev = _alpha_prev(schedule, prev_t, sample.ndim)
-    direction = (1.0 - a_prev).clamp_min(0.0).sqrt() * eps
-    return StepOutput(prev_sample=a_prev.sqrt() * x0 + direction, pred_original_sample=x0)
+    sigma = torch.zeros_like(a_prev)
+    if eta > 0.0:
+        if noise is None:
+            raise ValueError("eta > 0 requires noise")
+        a_t = _extract(schedule.alphas_cumprod, t, sample.ndim)
+        sigma = eta * ((1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev)).sqrt()
+    prev_sample = a_prev.sqrt() * x0 + (1.0 - a_prev - sigma**2).clamp_min(0.0).sqrt() * eps
+    return StepOutput(prev_sample if eta <= 0.0 else prev_sample + sigma * noise, x0)
+
+
+def ddpm_step(
+    config: SchedulerConfig, schedule: Schedule, model_output: torch.Tensor, t: Timestep,
+    prev_t: Timestep, sample: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
+    variance_type: str = "fixed_small",
+) -> StepOutput:
+    """One ancestral DDPM update x_t -> x_{prev_t}: the posterior mean plus
+    std * noise wherever prev_t >= 0 (no noise given: zeros, as the JAX step
+    without a key)."""
+    x0 = pred_original_sample(config, schedule, model_output, t, sample)
+    a_t = _extract(schedule.alphas_cumprod, t, sample.ndim)
+    a_prev = _alpha_prev(schedule, prev_t, sample.ndim)
+    current_alpha = a_t / a_prev
+    current_beta = 1.0 - current_alpha
+    coef_x0 = a_prev.sqrt() * current_beta / (1.0 - a_t)
+    coef_xt = current_alpha.sqrt() * (1.0 - a_prev) / (1.0 - a_t)
+    mean = coef_x0 * x0 + coef_xt * sample
+    variance = ((1.0 - a_prev) / (1.0 - a_t) * current_beta).clamp_min(1e-20)
+    if variance_type == "fixed_large":
+        variance = current_beta
+    noise = torch.zeros_like(sample) if noise is None else noise
+    add = _per_sample(torch.as_tensor(prev_t, device=sample.device) >= 0, sample.ndim)
+    return StepOutput(mean + torch.where(add, variance.sqrt() * noise, 0.0), x0)
+
+
+def lcm_step(
+    config: SchedulerConfig, schedule: Schedule, model_output: torch.Tensor, t: Timestep,
+    prev_t: Timestep, sample: torch.Tensor, *, noise: Optional[torch.Tensor] = None, is_last=True,
+) -> StepOutput:
+    """One latent-consistency update x_t -> x_{prev_t}: the x0 estimate blended
+    with the sample by the consistency boundary scalings (sigma_data = 0.5, t
+    scaled by `timestep_scaling`), re-noised to prev_t on every step but the
+    last, which returns the denoised estimate itself."""
+    x0 = pred_original_sample(config, schedule, model_output, t, sample)
+    sigma_data = 0.5
+    scaled_t = torch.as_tensor(t, device=sample.device).float() * config.timestep_scaling
+    c_skip = _per_sample(sigma_data**2 / (scaled_t**2 + sigma_data**2), sample.ndim)
+    c_out = _per_sample(scaled_t / (scaled_t**2 + sigma_data**2).sqrt(), sample.ndim)
+    denoised = c_out * x0 + c_skip * sample
+    a_prev = _alpha_prev(schedule, prev_t, sample.ndim)
+    noise = torch.zeros_like(sample) if noise is None else noise
+    renoised = a_prev.sqrt() * denoised + (1.0 - a_prev).sqrt() * noise
+    is_last = _per_sample(torch.as_tensor(is_last, device=sample.device), sample.ndim)
+    return StepOutput(torch.where(is_last, denoised, renoised), denoised)
+
+
+def lcm_timesteps(
+    config: SchedulerConfig, num_inference_steps: int, original_inference_steps: Optional[int] = None
+) -> np.ndarray:
+    """The LCM plan: the distilled schedule's timesteps (k * i - 1 for its
+    original_inference_steps), descending, subsampled with an even stride."""
+    T = config.num_train_timesteps
+    origin = original_inference_steps or config.original_inference_steps
+    if num_inference_steps > origin:
+        raise ValueError(
+            f"num_inference_steps ({num_inference_steps}) cannot exceed the distilled "
+            f"original_inference_steps ({origin})"
+        )
+    lcm_origin = np.arange(1, origin + 1, dtype=np.int64) * (T // origin) - 1
+    skipping = len(lcm_origin) // num_inference_steps
+    return lcm_origin[::-1][::skipping][:num_inference_steps].astype(np.int32)
+
+
+def make_lcm_plan(config: SchedulerConfig, num_inference_steps: int) -> DenoisePlan:
+    """LCM plan: prev_t is the next plan entry (not t - T/K); the last is -1."""
+    ts = lcm_timesteps(config, num_inference_steps)
+    return DenoisePlan(ts, np.concatenate([ts[1:], np.asarray([-1], np.int32)]).astype(np.int32))

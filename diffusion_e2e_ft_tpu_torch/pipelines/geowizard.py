@@ -8,8 +8,15 @@ over the DDIM plan whose UNet runs joint cross-task self-attention; one
 batched decode of both halves; depth = channel mean mapped to [0, 1], normal =
 the unit vector flipped to GeoWizard's convention. The JAX package decodes the
 two halves as batch-1 calls under `lax.map` for a TPU layout problem; here they
-are one batch of 2. Ensembles and gaussian / pyramid noise (slice C) and the
-multi-chip mesh (slice F) are not ported yet.
+are one batch of 2. DDIM only, as the JAX pipeline.
+
+`__call__` draws each member's initial latent (zeros, gaussian or pyramid)
+from a `torch.Generator` seeded with `seed`, shared by the member's depth and
+normal halves; it runs the members in chunks of `batch_size`, each chunk one
+2N batch through the UNet (joint attention over each member's pair) and the
+decode, and ensembles them: `ensemble_depths` for depth with its
+uncertainty, `ensemble_normals` for normals. The multi-chip mesh (slice F)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
 from diffusion_e2e_ft_tpu_torch.models import clip as clip_models
+from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
 from diffusion_e2e_ft_tpu_torch.ops import image as im
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
@@ -56,7 +64,7 @@ class GeoWizardOutput:
     depth_colored: Optional[np.ndarray] = None
     normal_np: Optional[np.ndarray] = None
     normal_colored: Optional[np.ndarray] = None
-    uncertainty: Optional[np.ndarray] = None  # None for a single member (ensembles: slice C)
+    uncertainty: Optional[np.ndarray] = None  # the depth ensemble's; None for a single member
 
 
 class GeoWizardPipeline:
@@ -127,22 +135,23 @@ class GeoWizardPipeline:
 
     @torch.inference_mode()
     def infer(
-        self, rgb: torch.Tensor, domain: str = "indoor", num_steps: int = 1, noise: str = "zeros"
+        self, rgb: torch.Tensor, domain: str = "indoor", num_steps: int = 1, latent0: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """rgb [N,H,W,3] in [-1,1] -> (depth [N,H,W] in [0,1], unit normals
-        [N,H,W,3] in GeoWizard's sign convention), fp32."""
-        if noise not in (None, "zeros"):  # the seed-driven generator comes with ensembles
-            raise NotImplementedError(f"{noise} noise is not ported yet (slice C: multi-step, noise, ensembles)")
+        [N,H,W,3] in GeoWizard's sign convention), fp32, one row a member.
+        `latent0` [N,4,h,w] is each member's initial latent (None: zeros),
+        shared by its depth and normal halves; an rgb batch of 1 is encoded
+        once and shared by the members."""
         cfg = self.scheduler_config
         plan = sched_ops.make_plan(cfg, num_steps)
-        n, h, w, _ = rgb.shape
         rgb = rgb.to(self.device, torch.float32)
-        latent0 = noise_ops.make_noise(noise, (n, self.vae.config.latent_channels, h // 8, w // 8),
-                                       self.dtype, self.device)
-
         rgb_latent = self.vae.encode_mean(rgb.to(self.dtype).permute(0, 3, 1, 2)) * self.latent_scale_factor
+        latent0 = torch.zeros_like(rgb_latent) if latent0 is None else latent0.to(self.device, self.dtype)
+        n = latent0.shape[0]
+        rgb_latent = rgb_latent.expand(n, -1, -1, -1)
         rgb_latent2 = torch.cat([rgb_latent, rgb_latent])  # [2N, ...]: depth half, normal half
-        embed = self.image_encoder(clip_models.clip_preprocess((rgb + 1.0) / 2.0))[:, None, :]  # [N, 1, D]
+        embed = self.image_encoder(clip_models.clip_preprocess((rgb + 1.0) / 2.0))[:, None, :]  # [N or 1, 1, D]
+        embed = embed.expand(n, -1, -1)
         context = torch.cat([embed, embed]).to(self.dtype)
         class_vec = switcher_embedding(domain_one_hot(domain), batch=n).to(self.device)
         latent = torch.cat([latent0, latent0])
@@ -173,13 +182,11 @@ class GeoWizardPipeline:
         color_map: Optional[str] = "Spectral",
         ensemble_kwargs: Optional[dict] = None,
     ) -> GeoWizardOutput:
-        """The JAX package's arguments, in its order. With one member and zeros
-        noise `batch_size`, `seed` and `ensemble_kwargs` leave the output as it
-        is; an ensemble or random noise, where they would change it, raises."""
+        """The JAX package's arguments, in its order. `seed` (default 0)
+        seeds the generator of the noise; `batch_size` members run a device
+        call (the JAX default, 1); `ensemble_kwargs` go to `ensemble_depths`."""
         if denoising_steps < 1 or ensemble_size < 1:
             raise ValueError("denoising_steps and ensemble_size must be >= 1")
-        if ensemble_size != 1:
-            raise NotImplementedError("ensembles are not ported yet (slice C: multi-step, noise, ensembles)")
         img = np.asarray(image)
         if img.ndim != 3 or img.shape[-1] != 3:
             raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")
@@ -188,8 +195,26 @@ class GeoWizardPipeline:
         rgb = torch.from_numpy(img.astype(np.float32)).to(self.device)
         if processing_res > 0:
             rgb = im.resize_max_res(rgb, processing_res)
-        depth, normal = self.infer(im.normalize_rgb(rgb)[None], domain, denoising_steps, noise)
-        depth, normal = depth[0], normal[0]
+        rgb = im.normalize_rgb(rgb)[None]
+        latent_shape = (self.vae.config.latent_channels, rgb.shape[1] // 8, rgb.shape[2] // 8)
+        generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
+        batch_size = max(1, batch_size)
+        depths, normals = [], []
+        for start in range(0, ensemble_size, batch_size):
+            latent0, _ = noise_ops.member_draws(noise, generator, min(batch_size, ensemble_size - start),
+                                                latent_shape, dtype=self.dtype)
+            d, nrm = self.infer(rgb, domain, denoising_steps, latent0)
+            depths.append(d)
+            normals.append(nrm)
+        depth_preds, normal_preds = torch.cat(depths), torch.cat(normals)
+
+        uncertainty = None
+        if ensemble_size > 1:
+            depth, uncertainty = ens.ensemble_depths(depth_preds, **(ensemble_kwargs or {}))
+            normal = ens.ensemble_normals(normal_preds)
+            uncertainty = uncertainty.cpu().numpy()
+        else:
+            depth, normal = depth_preds[0], normal_preds[0]
 
         depth = (depth - depth.min()) / (depth.max() - depth.min()).clamp_min(1e-8)  # min-max to [0, 1]
         if match_input_res and tuple(depth.shape) != orig_hw:
@@ -201,4 +226,4 @@ class GeoWizardPipeline:
         if color_map is not None:
             colored = (im.colorize_depth(depth, 0.0, 1.0, cmap=color_map) * 255).astype(np.uint8)
         return GeoWizardOutput(depth_np=depth, depth_colored=colored, normal_np=normal,
-                               normal_colored=im.colorize_normals(normal))
+                               normal_colored=im.colorize_normals(normal), uncertainty=uncertainty)

@@ -103,6 +103,8 @@ def scheduler_config_from_hf(cfg: Dict[str, Any]) -> sched_ops.SchedulerConfig:
         clip_sample_range=cfg.get("clip_sample_range", 1.0),
         set_alpha_to_one=cfg.get("set_alpha_to_one", False),
         rescale_betas_zero_snr=cfg.get("rescale_betas_zero_snr", False),
+        original_inference_steps=cfg.get("original_inference_steps", 50),
+        timestep_scaling=cfg.get("timestep_scaling", 10.0),
     )
 
 
@@ -152,6 +154,9 @@ def vae_config_to_hf(c: VAEConfig) -> Dict[str, Any]:
 
 
 def scheduler_config_to_hf(c: sched_ops.SchedulerConfig, class_name: str = "DDIMScheduler") -> Dict[str, Any]:
+    """The scheduler class's HF config; an LCM class also carries its
+    distillation fields (`original_inference_steps`, `timestep_scaling`)."""
+    lcm = {"original_inference_steps": c.original_inference_steps, "timestep_scaling": c.timestep_scaling}
     return {
         "_class_name": class_name,
         "num_train_timesteps": c.num_train_timesteps,
@@ -165,6 +170,7 @@ def scheduler_config_to_hf(c: sched_ops.SchedulerConfig, class_name: str = "DDIM
         "clip_sample_range": c.clip_sample_range,
         "set_alpha_to_one": c.set_alpha_to_one,
         "rescale_betas_zero_snr": c.rescale_betas_zero_snr,
+        **(lcm if "LCM" in class_name else {}),
         "trained_betas": None,
     }
 

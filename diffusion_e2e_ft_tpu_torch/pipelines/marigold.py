@@ -1,34 +1,42 @@
 """Marigold-style depth / surface-normal inference, port of
-`diffusion_e2e_ft_tpu/pipelines/marigold.py` (single member, zeros noise, DDIM).
+`diffusion_e2e_ft_tpu/pipelines/marigold.py`.
 
-The device body is VAE encode -> a Python loop over the DDIM plan (UNet, step)
--> VAE decode -> task postprocessing. With one step and zeros noise, the
-production configuration, that is one feed-forward pass. PyTorch runs it
-eagerly; there is nothing to compile. A DDPM-class checkpoint (what the
-trainers export) runs single-step through the same x0 path, as in the JAX
-package. Ensembles, gaussian / pyramid noise, multi-step DDPM and the LCM
-scheduler are not ported yet.
+The device body (`infer`) is VAE encode -> a Python loop over the timestep
+plan (UNet, then a DDIM, ancestral DDPM or latent-consistency step) -> VAE
+decode -> task postprocessing. With one step and zeros noise, the production
+configuration, that is one feed-forward pass. PyTorch runs it eagerly; there
+is nothing to compile. The body takes its random draws explicitly (each
+member's initial latent, and one noise tensor a step for the stochastic
+schedulers); `__call__` draws them member by member from a `torch.Generator`
+seeded with `seed`, runs the ensemble in chunks of `batch_size` members
+batched natively (the JAX package maps a batch-1 graph over them, for a TPU
+layout problem), and ensembles the members (`ops/ensemble.py`) with their
+uncertainty.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
+from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
 from diffusion_e2e_ft_tpu_torch.ops import image as im
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
 
+# max_res: members a call, from `perf/torch_batch_sweep.py` (bf16, 10 DDIM steps) on an NVIDIA H100 80GB HBM3
+# at 700 W: the least ms a member with a peak under 39.6 GiB (PERF.md, "Ensemble batch sweep")
+_BATCH_TABLE = {512: 16, 768: 12, 1024: 8, 1536: 3}
 
 @dataclasses.dataclass
 class MarigoldOutput:
     """Depth in [0, 1]; normals in [-1, 1]. The JAX package's fields, in its
-    order; `uncertainty` stays None for a single member (the ensembles that
-    fill it are slice C)."""
+    order; `uncertainty` (a depth ensemble's, at the processing resolution)
+    stays None for a single member and for normals."""
 
     depth_np: Optional[np.ndarray] = None
     depth_colored: Optional[np.ndarray] = None
@@ -80,10 +88,8 @@ class MarigoldPipeline:
         dtype: torch.dtype = torch.float32,
         scheduler_type: str = "ddim",
     ):
-        if scheduler_type not in ("ddim", "ddpm"):
-            raise NotImplementedError(
-                f"{scheduler_type} scheduler is not ported yet (slice C: multi-step, noise, ensembles)"
-            )
+        if scheduler_type not in ("ddim", "ddpm", "lcm"):
+            raise ValueError(f"Unknown scheduler_type {scheduler_type!r}; expected ddim, ddpm or lcm")
         self.scheduler_type = scheduler_type
         self.device = torch.device(device)
         self.dtype = dtype
@@ -91,7 +97,7 @@ class MarigoldPipeline:
         self.vae = vae.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
         self.scheduler_config = scheduler_config
         self.schedule = sched_ops.make_schedule(scheduler_config, device=self.device)
-        self.empty_text_embed = torch.as_tensor(np.asarray(empty_text_embed)).to(self.device, dtype)
+        self.empty_text_embed = torch.as_tensor(empty_text_embed).to(self.device, dtype)
 
     def with_mesh(self, mesh) -> "MarigoldPipeline":
         raise NotImplementedError("multi-device ensembles (with_mesh) are not ported yet (slice F: multi-GPU)")
@@ -111,6 +117,7 @@ class MarigoldPipeline:
         seed: int = 0,
         device="cuda",
         dtype: torch.dtype = torch.float32,
+        scheduler_type: str = "ddim",
     ) -> "MarigoldPipeline":
         """Random-weight pipeline (tiny by default). Weights are drawn on the CPU
         from `seed`, so the same seed gives the same model on every device."""
@@ -127,30 +134,49 @@ class MarigoldPipeline:
         empty = np.zeros((1, 2, ucfg.cross_attention_dim), np.float32)
         return cls(
             unet, vae, scheduler_config or sched_ops.SchedulerConfig(), empty,
-            device=device, dtype=dtype,
+            device=device, dtype=dtype, scheduler_type=scheduler_type,
         )
+
+    def step_noises(self, num_steps: int) -> int:
+        """How many step-noise tensors a `num_steps` run takes: one a step for
+        the stochastic schedulers (multi-step DDPM, LCM), else none."""
+        return num_steps if self.scheduler_type in ("ddpm", "lcm") and num_steps > 1 else 0
 
     @torch.inference_mode()
     def infer(
-        self, rgb: torch.Tensor, num_steps: int = 1, normals: bool = False, noise: str = "zeros"
+        self, rgb: torch.Tensor, num_steps: int = 1, normals: bool = False,
+        latent0: Optional[torch.Tensor] = None, step_noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """rgb [B,H,W,3] in [-1,1] -> depth [B,H,W] in [0,1] or unit normals
-        [B,H,W,3] (fp32)."""
-        if noise not in (None, "zeros"):  # the seed-driven generator comes with ensembles
-            raise NotImplementedError(f"{noise} noise is not ported yet (slice C: multi-step, noise, ensembles)")
+        [B,H,W,3] (fp32), one row a member.
+
+        `latent0` [B,4,h,w] is each member's initial latent (None: zeros); an
+        rgb batch of 1 is encoded once and shared by the members. The
+        stochastic schedulers take `step_noise`, `step_noises(num_steps)`
+        tensors shaped as `latent0`, one a step."""
         cfg = self.scheduler_config
-        if self.scheduler_type == "ddpm" and num_steps > 1:
-            raise NotImplementedError("multi-step DDPM is not ported yet (slice C: multi-step, noise, ensembles)")
-        plan = sched_ops.make_plan(cfg, num_steps)
-        b, h, w, _ = rgb.shape
-        latent = noise_ops.make_noise(noise, (b, self.vae.config.latent_channels, h // 8, w // 8), self.dtype, self.device)
+        lcm = self.scheduler_type == "lcm"
+        plan = sched_ops.make_lcm_plan(cfg, num_steps) if lcm else sched_ops.make_plan(cfg, num_steps)
+        stochastic = self.step_noises(num_steps) > 0
+        if stochastic and (step_noise is None or len(step_noise) != num_steps):
+            raise ValueError(f"{num_steps}-step {self.scheduler_type} takes step_noise: one tensor a step")
         x = rgb.to(self.device, self.dtype).permute(0, 3, 1, 2)
         rgb_latent = self.vae.encode_mean(x) * self.latent_scale_factor
+        latent = torch.zeros_like(rgb_latent) if latent0 is None else latent0.to(self.device, self.dtype)
+        b = latent.shape[0]
+        rgb_latent = rgb_latent.expand(b, -1, -1, -1)
         context = self.empty_text_embed.expand(b, -1, -1)
         x0 = None
-        for t, prev_t in zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist()):
-            model_out = self.unet(torch.cat([rgb_latent, latent], dim=1), t, context)
-            out = sched_ops.ddim_step(cfg, self.schedule, model_out.float(), t, prev_t, latent.float())
+        for i, (t, prev_t) in enumerate(zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist())):
+            model_out = self.unet(torch.cat([rgb_latent, latent], dim=1), t, context).float()
+            args = (cfg, self.schedule, model_out, t, prev_t, latent.float())
+            if lcm:
+                out = sched_ops.lcm_step(*args, noise=step_noise[i] if stochastic else None,
+                                         is_last=i == num_steps - 1)
+            elif stochastic:
+                out = sched_ops.ddpm_step(*args, noise=step_noise[i])
+            else:
+                out = sched_ops.ddim_step(*args)
             latent, x0 = out.prev_sample.to(self.dtype), out.pred_original_sample
         decoded = self.vae.decode(x0.to(self.dtype) / self.latent_scale_factor).float()
         decoded = decoded.permute(0, 2, 3, 1)  # [B, H, W, 3]
@@ -175,17 +201,14 @@ class MarigoldPipeline:
         color_map: Optional[str] = "Spectral",
         ensemble_kwargs: Optional[dict] = None,
     ) -> MarigoldOutput:
-        """The JAX package's arguments, in its order. With one member and zeros
-        noise `batch_size` (members per device call), `seed` (it keys only the
-        noise) and `ensemble_kwargs` (they tune only the ensembling) leave the
-        output as it is; an ensemble or random noise, where they would change
-        it, raises."""
+        """The JAX package's arguments, in its order. `seed` (default 0)
+        seeds the generator of the noise; `batch_size` members run a device
+        call (< 1: `find_batch_size`); `ensemble_kwargs` go to
+        `ensemble_depths`."""
         if denoising_steps < 1:
             raise ValueError("denoising_steps must be >= 1")
         if ensemble_size < 1:
             raise ValueError("ensemble_size must be >= 1")
-        if ensemble_size != 1:
-            raise NotImplementedError("ensembles are not ported yet (slice C: multi-step, noise, ensembles)")
         img = np.asarray(image)
         if img.ndim != 3 or img.shape[-1] != 3:
             raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")
@@ -194,10 +217,23 @@ class MarigoldPipeline:
         rgb = torch.from_numpy(img.astype(np.float32)).to(self.device)
         if processing_res > 0:
             rgb = im.resize_max_res(rgb, processing_res, method=resample_method)
-        pred = self.infer(im.normalize_rgb(rgb)[None], denoising_steps, normals, noise)[0]
+        rgb = im.normalize_rgb(rgb)[None]
+        latent_shape = (self.vae.config.latent_channels, rgb.shape[1] // 8, rgb.shape[2] // 8)
+        generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
+        if batch_size < 1:
+            batch_size = self.find_batch_size(ensemble_size, max(rgb.shape[1:3]))
+        preds = []
+        for start in range(0, ensemble_size, batch_size):
+            latent0, step_noise = noise_ops.member_draws(
+                noise, generator, min(batch_size, ensemble_size - start), latent_shape,
+                self.step_noises(denoising_steps), self.dtype,
+            )
+            preds.append(self.infer(rgb, denoising_steps, normals, latent0, step_noise))
+        preds = torch.cat(preds)  # [E, H, W(, 3)]
 
         if normals:
-            normal = pred / (pred.norm(dim=-1, keepdim=True) + 1e-5)
+            normal = ens.ensemble_normals(preds) if ensemble_size > 1 else preds[0]
+            normal = normal / (normal.norm(dim=-1, keepdim=True) + 1e-5)
             if match_input_res and tuple(normal.shape[:2]) != orig_hw:
                 normal = im.resize(normal, orig_hw, method=resample_method)
                 normal = normal / (normal.norm(dim=-1, keepdim=True) + 1e-5)
@@ -205,11 +241,37 @@ class MarigoldPipeline:
             colored = im.colorize_normals(normal) if color_map is not None else None
             return MarigoldOutput(normal_np=normal, normal_colored=colored)
 
-        depth = (pred - pred.min()) / (pred.max() - pred.min()).clamp_min(1e-8)  # min-max to [0, 1]
+        uncertainty = None
+        if ensemble_size > 1:
+            depth, uncertainty = ens.ensemble_depths(preds, **(ensemble_kwargs or {}))
+            uncertainty = uncertainty.cpu().numpy()
+        else:
+            depth = preds[0]
+        depth = (depth - depth.min()) / (depth.max() - depth.min()).clamp_min(1e-8)  # min-max to [0, 1]
         if match_input_res and tuple(depth.shape) != orig_hw:
             depth = im.resize(depth[..., None], orig_hw, method=resample_method)[..., 0]
         depth = depth.clamp(0.0, 1.0).cpu().numpy()
         colored = None
         if color_map is not None:
             colored = (im.colorize_depth(depth, 0.0, 1.0, cmap=color_map) * 255).astype(np.uint8)
-        return MarigoldOutput(depth_np=depth, depth_colored=colored)
+        return MarigoldOutput(depth_np=depth, depth_colored=colored, uncertainty=uncertainty)
+
+    @staticmethod
+    def find_batch_size(ensemble_size: int, max_res: int) -> int:
+        """Members a device call, by the processing resolution's longer side,
+        capped at the ensemble size: the batch with the least bf16 time a
+        member among those whose peak stays under half of an 80 GB card.
+
+        The rows up to 1536 are measured by `perf/torch_batch_sweep.py` on
+        an H100 (PERF.md, "Ensemble batch sweep"); a resolution takes the
+        row of the next swept one up. At 512 the largest batch swept (16) is
+        still the fastest, so the optimum may lie above it. Beyond 1536 the
+        batch is an extrapolation, not measured: the peak grows about
+        linearly in pixels x members, so the 1536 row's batch shrinks with
+        the pixel count."""
+        for res, bs in _BATCH_TABLE.items():
+            if max_res <= res:
+                break
+        else:
+            bs = int(bs * (res / max_res) ** 2)
+        return max(1, min(bs, ensemble_size))

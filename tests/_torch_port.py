@@ -90,3 +90,47 @@ def load_geowizard_into(unet, vae, image_encoder, params: dict):
     sd = tconvert.clip_vision_params_to_state_dict(params["image_encoder"])
     image_encoder.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return unet, vae, image_encoder.eval()
+
+
+# ensemble_depths, two float32 objectives (the JAX package's and the port's, or the port's on two devices):
+# scipy's BFGS walks them to other (s, t), so the ensembled depth and uncertainty ([0, 1] units) agree only
+# within this drift. Over 64 ensembles of 3-10 noisy affine copies (32x32 to 96x128, both reductions, with
+# and without max_res) the port and the JAX package differed by 4.6e-2 at most; the bound is about twice
+# that. tests/test_torch_ensemble.py holds the objective and the combine step tightly.
+ENSEMBLE_DRIFT = 0.1
+
+
+def jax_member_latents(noise: str, seed: int, members: int, shape) -> list:
+    """A JAX pipeline `__call__`'s initial latents, NCHW: member m draws
+    `make_noise(noise, split(key(seed), E + 1)[1 + m], shape)` (shape NHWC, batch 1)."""
+    from diffusion_e2e_ft_tpu.ops import noise as jnoise
+
+    keys = jax.random.split(jax.random.key(seed), members + 1)[1:]
+    return [nchw(np.array(jnoise.make_noise(noise, k, shape, np.float32))) for k in keys]
+
+
+def feed_draws(monkeypatch, latents: list) -> None:
+    """The port's `noise.member_draws` hands out `latents` member by member
+    (and no step noise: DDIM)."""
+    from diffusion_e2e_ft_tpu_torch.ops import noise as tnoise
+
+    members = iter(latents)
+
+    def draws(noise_type, generator, n, shape, num_step_noises=0, dtype=torch.float32):
+        assert num_step_noises == 0 and tuple(shape) == tuple(latents[0].shape[1:])
+        return torch.cat([next(members) for _ in range(n)]).to(dtype), []
+
+    monkeypatch.setattr(tnoise, "member_draws", draws)
+
+
+def record(monkeypatch, module, name: str) -> list:
+    """Wrap `module.name` so that the first argument of each call (an
+    ensemble's members) is kept, as numpy."""
+    seen, fn = [], getattr(module, name)
+
+    def wrapper(members, *args, **kw):
+        seen.append(np.asarray(members))
+        return fn(members, *args, **kw)
+
+    monkeypatch.setattr(module, name, wrapper)
+    return seen

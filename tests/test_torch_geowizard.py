@@ -2,27 +2,35 @@
 the JAX package, fp32 on the CPU, with one seeded param set (UNet, VAE, CLIP
 vision tower) written by the JAX package as an HF pipeline directory and
 loaded by the port: the UNet with its class embedding and joint attention,
-the switcher goldens, the device body, `__call__`, loading in both
-directions, the unported options, the default device, and the kernel launches
-of the full-width model's requests, traced on the meta device.
+the switcher goldens, the device body (one step, and three DDIM steps from a
+pyramid latent), `__call__` (one member, and a 3-member pyramid-noise
+ensemble fed the JAX draws), loading in both directions, the options slice C
+ported, the default device, and the kernel launches of the full-width
+model's requests, traced on the meta device.
 
 Tolerances: the UNet and the device bodies 1e-4 (fp32 summation order through
 the towers); `__call__` 1e-3, since it min-max rescales the depth by its
-small random-weight range, which amplifies those differences."""
+small random-weight range, which amplifies those differences (an ensemble's
+members too); an ensembled depth and its uncertainty within `ENSEMBLE_DRIFT`
+(scipy's BFGS over a float32 objective; `_torch_port.py` says why)."""
 
 import dataclasses
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import geowizard_flax_params, load_geowizard_into, read_key_inventory
+from _torch_port import ENSEMBLE_DRIFT, feed_draws, geowizard_flax_params, jax_member_latents, load_geowizard_into
+from _torch_port import nchw, read_key_inventory, record
 from diffusion_e2e_ft_tpu.models import AutoencoderKL as JVAE, UNet2DCondition as JUNet
 from diffusion_e2e_ft_tpu.models import UNetConfig as JUNetConfig, VAEConfig as JVAEConfig
 from diffusion_e2e_ft_tpu.models import clip as jclip
 from diffusion_e2e_ft_tpu.models import convert as jconvert
+from diffusion_e2e_ft_tpu.ops import ensemble as jens
+from diffusion_e2e_ft_tpu.ops import noise as jnoise
 from diffusion_e2e_ft_tpu.ops import scheduler as jsched
 from diffusion_e2e_ft_tpu.pipelines import GeoWizardPipeline as JGeoWizard
 from diffusion_e2e_ft_tpu.pipelines import loading as jloading
@@ -33,6 +41,7 @@ from diffusion_e2e_ft_tpu_torch import kernels
 from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as tfa
 from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
 from diffusion_e2e_ft_tpu_torch.models import clip as tclip
+from diffusion_e2e_ft_tpu_torch.ops import ensemble as tens
 from diffusion_e2e_ft_tpu_torch.models import convert as tconvert
 from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline, MarigoldPipeline, loading as tloading
 from diffusion_e2e_ft_tpu_torch.pipelines.geowizard import GeoWizardOutput, domain_one_hot, switcher_embedding
@@ -46,6 +55,8 @@ VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_grou
 VISION = dict(hidden_size=32, intermediate_size=64, num_layers=2, num_heads=4, image_size=224, patch_size=32,
               projection_dim=32)
 H, W = 64, 48  # latent 8 x 6: H != W catches a transposed layout
+LATENT = (1, H // 8, W // 8, 4)  # one member's JAX latent (NHWC)
+SEED, STEPS = 7, 3
 
 
 @pytest.fixture(scope="module")
@@ -194,15 +205,71 @@ def test_output_fields_match_jax():
     assert names[-1] == "uncertainty"
 
 
-def test_unported_options_raise(pipes):
-    _, tp = pipes
-    image = np.zeros((H, W, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tp(image, ensemble_size=2, processing_res=0)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tp(image, noise="gaussian", processing_res=0)
+def test_unported_options_raise(monkeypatch, pipes):
+    """The options that raised before slice C now run and match the JAX
+    package: an ensemble (of zeros-noise members, identical draws in both)
+    with its uncertainty, and a gaussian-noise member (the JAX draw fed to
+    the port). The multi-chip mesh still raises, naming slice F."""
+    jp, tp = pipes
+    image = np.random.default_rng(15).integers(0, 256, (H, W, 3), dtype=np.uint8)
+    kw = dict(processing_res=0, domain="indoor", color_map=None, seed=0)
+    want, got = jp(image, ensemble_size=2, **kw), tp(image, ensemble_size=2, **kw)
+    np.testing.assert_allclose(got.depth_np, want.depth_np, atol=ENSEMBLE_DRIFT, rtol=0)
+    np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)
+    assert got.uncertainty.shape == want.uncertainty.shape == (H, W)
+    want = jp(image, noise="gaussian", **kw)
+    feed_draws(monkeypatch, jax_member_latents("gaussian", 0, 1, LATENT))
+    got = tp(image, noise="gaussian", **kw)
+    np.testing.assert_allclose(got.depth_np, want.depth_np, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)
     with pytest.raises(NotImplementedError, match="slice F"):
         tp.with_mesh(None)
+
+
+def test_multi_step_device_body_matches(pipes, rgb):
+    """Three DDIM steps from one pyramid latent, shared by the task pair."""
+    jp, tp = pipes
+    latent0 = np.array(jnoise.make_noise("pyramid", jax.random.key(SEED), LATENT, jnp.float32))
+    want_d, want_n = (np.asarray(x) for x in jp._infer_jit(jp.params, jnp.asarray(rgb), STEPS, jnp.asarray(latent0),
+                                                              jnp.asarray(j_one_hot("object"))))
+    got_d, got_n = tp.infer(torch.from_numpy(rgb), "object", STEPS, nchw(latent0))
+    np.testing.assert_allclose(got_d.numpy(), want_d, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_n.numpy(), want_n, atol=1e-4, rtol=0)
+
+
+def test_call_ensemble_matches(monkeypatch, pipes):
+    """A 3-member pyramid-noise ensemble at three steps: JAX in batch-1
+    chunks, the port in chunks of 2 and 1 (a 2N = 4 UNet batch with joint
+    attention over each member's pair), fed the JAX members' latents."""
+    jp, tp = pipes
+    image = np.random.default_rng(16).integers(0, 256, (H, W, 3), dtype=np.uint8)
+    kw = dict(processing_res=0, denoising_steps=STEPS, ensemble_size=3, noise="pyramid", seed=SEED,
+              domain="outdoor", color_map=None)
+    want_depths, want_normals = record(monkeypatch, jens, "ensemble_depths"), record(monkeypatch, jens,
+                                                                                      "ensemble_normals")
+    want = jp(image, batch_size=1, **kw)
+    feed_draws(monkeypatch, jax_member_latents("pyramid", SEED, 3, LATENT))
+    got_depths, got_normals = record(monkeypatch, tens, "ensemble_depths"), record(monkeypatch, tens,
+                                                                                    "ensemble_normals")
+    got = tp(image, batch_size=2, **kw)
+    assert got_depths[0].shape == want_depths[0].shape == (3, H, W)
+    np.testing.assert_allclose(got_depths[0], want_depths[0], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got_normals[0], want_normals[0], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)  # the same member
+    np.testing.assert_allclose(got.depth_np, want.depth_np, atol=ENSEMBLE_DRIFT, rtol=0)
+    assert got.uncertainty.shape == want.uncertainty.shape == (H, W)
+    np.testing.assert_allclose(got.uncertainty, want.uncertainty, atol=ENSEMBLE_DRIFT, rtol=0)
+
+
+def test_seed_gives_the_same_bits(pipes):
+    _, tp = pipes
+    image = np.random.default_rng(17).integers(0, 256, (H, W, 3), dtype=np.uint8)
+    kw = dict(processing_res=0, denoising_steps=2, ensemble_size=2, noise="pyramid", batch_size=2, color_map=None)
+    a, b, c = tp(image, seed=5, **kw), tp(image, seed=5, **kw), tp(image, seed=6, **kw)
+    np.testing.assert_array_equal(a.depth_np, b.depth_np)
+    np.testing.assert_array_equal(a.normal_np, b.normal_np)
+    np.testing.assert_array_equal(a.uncertainty, b.uncertainty)
+    assert not np.array_equal(a.depth_np, c.depth_np)
 
 
 @pytest.mark.parametrize(

@@ -42,6 +42,7 @@ def test_port_modules_listed():
         "diffusion_e2e_ft_tpu_torch.training.config",
         "diffusion_e2e_ft_tpu_torch.training.geowizard",
         "diffusion_e2e_ft_tpu_torch.ops.noise",
+        "diffusion_e2e_ft_tpu_torch.ops.ensemble",
         "diffusion_e2e_ft_tpu_torch.training.loop",
         "diffusion_e2e_ft_tpu_torch.training.lr",
         "diffusion_e2e_ft_tpu_torch.training.optim",

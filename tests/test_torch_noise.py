@@ -188,3 +188,23 @@ def test_make_noise():
             tnoise.make_noise(noise_type, (1, 4, 2, 2))
     with pytest.raises(ValueError, match="Unknown noise type"):
         tnoise.make_noise("uniform", (1, 4, 2, 2), generator=gen)
+
+
+def test_member_draws_are_per_member():
+    """An ensemble's draws, member by member as the JAX pipelines make them:
+    cutting the ensemble into chunks leaves every member's initial latent and
+    step noise as they were, each pyramid member is divided by its own std,
+    and the draws are fp32 cast to the pipeline's dtype."""
+    shape = (4, 12, 10)
+    whole, steps = tnoise.member_draws("pyramid", torch.Generator().manual_seed(3), 5, shape, 2, torch.bfloat16)
+    assert whole.shape == (5, *shape) and whole.dtype == torch.bfloat16 and len(steps) == 2
+    gen = torch.Generator().manual_seed(3)
+    parts = [tnoise.member_draws("pyramid", gen, n, shape, 2, torch.bfloat16) for n in (2, 3)]
+    assert torch.equal(whole, torch.cat([p[0] for p in parts]))
+    for i in range(2):
+        assert steps[i].shape == whole.shape and torch.equal(steps[i], torch.cat([p[1][i] for p in parts]))
+    fp32, _ = tnoise.member_draws("pyramid", torch.Generator().manual_seed(3), 5, shape, 2)
+    assert torch.equal(fp32.to(torch.bfloat16), whole)
+    np.testing.assert_allclose([float(m.std()) for m in fp32], 1.0, atol=1e-5)
+    zeros, none = tnoise.member_draws("zeros", gen, 3, shape)
+    assert not zeros.any() and none == []

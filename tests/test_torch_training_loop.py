@@ -179,8 +179,18 @@ def test_cli_train_end_to_end(tmp_path, base_checkpoint):
     assert float(pipe.empty_text_embed.abs().sum()) > 0  # the real text tower travelled with the export
     out = pipe(np.zeros((48, 64, 3), np.uint8), processing_res=0, color_map=None)
     assert np.isfinite(out.depth_np).all()
-    with pytest.raises(NotImplementedError, match="multi-step DDPM"):  # the export's DDPM class, one step only
-        pipe.infer(torch.zeros(1, 48, 64, 3), num_steps=2)
+    # the export's DDPM class samples ancestrally at two steps and more: finite, and the JAX pipeline's
+    # output on the same export given its draws (the step noise its body draws from the key), to 1e-4
+    rgb = np.random.default_rng(3).uniform(-1, 1, (1, 48, 64, 3)).astype(np.float32)
+    jp = jloading.load_marigold_pipeline(str(export))
+    assert jp.scheduler_type == pipe.scheduler_type == "ddpm"
+    key = jax.random.key(0)
+    want = np.asarray(jp._infer_jit(jp.params, jnp.asarray(rgb), 2, False, jnp.zeros((1, 6, 8, 4)), key))
+    noise = [torch.from_numpy(np.moveaxis(np.array(jax.random.normal(k, (1, 6, 8, 4), jnp.float32)), -1, 1).copy())
+             for k in jax.random.split(key, 2)]
+    got = pipe.infer(torch.from_numpy(rgb), num_steps=2, step_noise=noise).numpy()
+    assert got.shape == (1, 48, 64) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 # --modality joint is ported (tests/test_torch_geowizard_trainer.py): it now reaches the next unported option
