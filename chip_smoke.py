@@ -109,7 +109,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps, ensemble 4, gaussian noise, 768x768; (c) after phase 11, on its
    pipeline, a GeoWizard ensemble (576x768, 10 steps, ensemble 10, pyramid
    noise, 5 members a call). The shapes kernel 1 ran at in (a)-(c) must be
-   those phases 3 and 3c held against the plain version.
+   those phases 3 and 3c held against the plain version. Phases 14 and 15
+   run scipy's BFGS under `warnings.catch_warnings`: each RuntimeWarning is
+   printed with its file and line, and the first members that warned are
+   written to `chiprun_out/bfgs_warned_members.npz`
+   (`perf/torch_ensemble_warning.py` runs them through the JAX package);
+16. slice E1's main path, the evaluation CLIs, bf16, on phase 6's HF
+   directory: (a) the host's image IO (g++, png.h, jpeglib.h, whether
+   `native_io` built, whether PIL, cv2 and PyYAML import: the path needs
+   none of them); (b) a synthetic NYU-layout tar of four 480x640 frames (RGB,
+   16-bit depth and filled depth PNGs; one RGB frame's rows all Paeth) with
+   a dataset config of `config/dataset/data_nyu_test.yaml`'s keys; (c) a
+   KITTI-layout tree (one 375x1242 frame and a `None` line); (d)
+   `cli.infer` on each at native resolution, one step, zeros noise: a finite
+   [0, 1] `.npy` a frame (480x640, 352x1216; KITTI twice, the first call
+   at its shape cold), 17 kernel-1 launches a frame, `arguments.txt`, each
+   frame's host ms split into read+decode, pipeline and save, peak memory;
+   after phase 15 (c), two NYU frames with `--model_type geowizard` on
+   slice B's weights; (e) `cli.eval_depth` on the dumps with
+   both alignments on the card: ten finite metrics, the same files on the
+   CPU within 1e-5 relative, and predictions made an exact affine map of the
+   GT (of 1/GT for disparity) give abs_rel <= 1e-5 and delta1 = 1; (f)
+   `cli.eval_normals` on a two-frame DSINE nyuv2 tree: eight finite values;
+   (g) `cli.run_marigold` over two 576x768 PNGs, then again under
+   `--profile_dir` (kernel 1 in the trace): `depth_bw` read back by the
+   port's decoder equals `to_uint16(depth_np)`. The shapes kernel 1 ran at
+   must be those phase 3c held against the plain version.
 
 Phase 3c runs the forward kernel at every shape phase 15's requests send
 it, worked out from their sizes: the baseline's chunk of 10 at 480x640
@@ -119,7 +144,12 @@ at 768x768 and the GeoWizard ensemble's 5 at 576x768 (joint [5, 13824, 8,
 40], [5, 3456, 8, 80], [5, 864, 8, 160], the decoder's [10, 6912, 1, 512]),
 and at the table's batch for 10 members at 768x768 ([10, 9216, 5, 64],
 [10, 9216, 1, 512], on no phase 15 request), against the plain version row
-by row.
+by row; and at every shape phase 16's frames send it: NYU's 480x640
+([1, 4800, 5, 64], [1, 1200, 10, 64], [1, 300, 20, 64], [1, 4800, 1,
+512]), KITTI's 352x1216 crop ([1, 6688, 5, 64], [1, 1672, 10, 64], [1, 418,
+20, 64], [1, 6688, 1, 512]) and GeoWizard's 480x640 ([1, 9600, 8, 40], [1,
+2400, 8, 80], [1, 600, 8, 160]; its decode at [2, 4800, 1, 512] is phase
+3's).
 Phases 3, 4 and 4b include the joint step's new shapes: the VAE mid
 attention at [2, 4800, 1, 512] and [4, 4800, 1, 512] (the decoder at 2B
 under grad) and every GN -> conv shape of the encoder at B = 2 and 4 and the
@@ -140,11 +170,13 @@ import copy
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from typing import Optional
 
 # One card: every phase runs on cuda:0, and the result line counts what the
@@ -290,6 +322,20 @@ GEO_ENSEMBLE = dict(denoising_steps=10, ensemble_size=10, noise="pyramid", proce
 BASELINE_WARM = 5  # warm baseline requests with the same seed, after a first one; then one with another seed
 SLICE_C_STEPS = 3  # phase 14's denoising steps a run
 UNET_SITES_768 = SITES_768 - 2  # UNet self-attention sites in the envelope at 768x768 (9216, 2304, 576 tokens)
+# Slice E1, the evaluation path (phase 16): the repo's eval scripts run at native resolution
+# (--processing_res 0), single step, zeros noise, one frame a call; NYU frames are 480x640, KITTI's are
+# 375x1242 cut to the 352x1216 benchmark crop; run_marigold's folder holds 576x768 frames
+NYU_HW, KITTI_RAW_HW, KITTI_HW, RUN_HW = (480, 640), (375, 1242), (352, 1216), (576, 768)
+NYU_FRAMES = 4
+EVAL_SITES = 17  # kernel 1 a frame at each of these sizes: VAE encoder, 15 UNet sites, decoder (GeoWizard too)
+EVAL_CPU_RTOL = 1e-5  # the ten depth metrics, --device cuda vs cpu on the same files (float32 sums' order)
+KNOWN_ANSWER_ABS_REL = 1e-5  # an exact affine map of the GT, aligned back: float32 rounding only
+SD2_ATTN = ((5, 10, 20, 20), (64, 64, 64, 64))  # UNet heads and head dim, levels 0-3
+GEO_ATTN = ((8, 8, 8, 8), (40, 80, 160, 160))
+# the first ensemble_depths call that raised a RuntimeWarning in phases 14 and 15: its members, for
+# perf/torch_ensemble_warning.py (which runs them through the JAX package's ensemble on the CPU)
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+WARNED_MEMBERS = os.path.join(REPO_DIR, "chiprun_out", "bfgs_warned_members.npz")
 # ensemble_depths, GPU vs CPU: scipy's BFGS takes numerical gradients of a float32 objective with steps of
 # 1.5e-8, below its rounding, so two summation orders of the same objective walk to other (s, t); the
 # same bound as tests/test_torch_ensemble.py (JAX vs the port), from the spread measured there
@@ -840,7 +886,12 @@ def write_hf_dir(path: str, parts: dict) -> None:
             json.dump(config, f)
         torch.save({k: t.to("cpu", torch.bfloat16) for k, t in module.state_dict().items()},
                    os.path.join(path, sub, fname))
-    os.makedirs(os.path.join(path, "scheduler"))
+    write_scheduler(path)
+
+
+def write_scheduler(path: str) -> None:
+    """The HF directory's scheduler: trailing DDIM, v-prediction, SD2's betas."""
+    os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
     with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump({"_class_name": "DDIMScheduler", "prediction_type": "v_prediction",
                    "timestep_spacing": "trailing", "beta_schedule": "scaled_linear"}, f)
@@ -1451,41 +1502,57 @@ def plain_by_row(fa, q, k, v, dtype=None) -> torch.Tensor:
                       for i in range(q.shape[0])])
 
 
+def attention_shapes(hw, batch: int, heads, head_dims, pair: int = 1) -> list:
+    """The (B, L, N, D) kernel 1 runs at in one device call on `batch`
+    members at `hw`: the UNet's self-attention levels 0-3 (those in the
+    kernels' envelope; `pair` 2 for GeoWizard's joint attention over each
+    member's task pair), the VAE encoder's mid block at B = 1 (one encode a
+    call, shared by its members) and the decoder's at `pair * batch`."""
+    from diffusion_e2e_ft_tpu_torch.kernels import in_kernel_envelope
+
+    h, w = hw[0] // 8, hw[1] // 8
+    shapes = []
+    for level, d in enumerate(head_dims):
+        tokens = -(-h // 2**level) * -(-w // 2**level)
+        if in_kernel_envelope(pair * tokens, pair * tokens, d):
+            shapes.append((batch, pair * tokens, heads[level], d))
+    return shapes + [(1, h * w, 1, 512), (pair * batch, h * w, 1, 512)]
+
+
 def slice_c_attention_cases() -> dict:
     """{(B, L, N, D): the phase 15 request that first sends kernel 1 that
-    shape}, from the requests' own sizes: each chunk of members runs the
-    UNet's self-attention levels 0-3 (those in the kernels' envelope) and the
-    VAE decoder's mid block at the chunk's batch, and the encoder's mid block
-    at B = 1 (one encode a chunk, shared by its members). (a) the baseline,
+    shape}, from the requests' own sizes: (a) the baseline,
     `find_batch_size`'s members a call; (b) the LCM request, the same; (c)
-    the GeoWizard ensemble, `batch_size` members a call: joint attention over
-    each member's task pair (2L tokens at 8 heads, d 40 / 80 / 160) and the
-    decode at 2N."""
-    from diffusion_e2e_ft_tpu_torch.kernels import in_kernel_envelope
+    the GeoWizard ensemble, `batch_size` members a call (joint attention at
+    8 heads, d 40 / 80 / 160, and the decode at 2N)."""
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
 
     def chunks(members: int, batch: int) -> set:
         return {batch, members % batch} - {0}
 
     cases: dict = {}
-
-    def add(label, hw, batch, heads, head_dims, pair):
-        h, w = hw[0] // 8, hw[1] // 8
-        for level, d in enumerate(head_dims):
-            tokens = -(-h // 2**level) * -(-w // 2**level)
-            shape = (batch, pair * tokens, heads[level], d)
-            if in_kernel_envelope(shape[1], shape[1], d):
-                cases.setdefault(shape, label)
-        for shape in ((1, h * w, 1, 512), (pair * batch, h * w, 1, 512)):  # VAE encoder, decoder
-            cases.setdefault(shape, label)
-
-    sd2 = ((5, 10, 20, 20), (64, 64, 64, 64))  # heads and head dim, levels 0-3
     for label, hw, kw in (("baseline", BASELINE_HW, BASELINE), ("LCM", LCM_HW, LCM_REQUEST)):
         members = kw["ensemble_size"]
         for batch in chunks(members, MarigoldPipeline.find_batch_size(members, max(hw))):
-            add(label, hw, batch, *sd2, pair=1)
+            for shape in attention_shapes(hw, batch, *SD2_ATTN):
+                cases.setdefault(shape, label)
     for batch in chunks(GEO_ENSEMBLE["ensemble_size"], GEO_ENSEMBLE["batch_size"]):
-        add("GeoWizard", GEO_ENSEMBLE_HW, batch, (8, 8, 8, 8), (40, 80, 160, 160), pair=2)
+        for shape in attention_shapes(GEO_ENSEMBLE_HW, batch, *GEO_ATTN, pair=2):
+            cases.setdefault(shape, "GeoWizard")
+    return cases
+
+
+def eval_attention_cases() -> dict:
+    """{(B, L, N, D): the phase 16 frame that first sends kernel 1 that
+    shape}: one member a call at native resolution, Marigold at NYU's
+    480x640 and KITTI's 352x1216 crop (a 44x152 latent: 6688, 1672 and 418
+    tokens, ragged against the tiles), GeoWizard at 480x640, and
+    run_marigold's 576x768 frames."""
+    cases: dict = {}
+    for label, hw, attn, pair in (("NYU", NYU_HW, SD2_ATTN, 1), ("KITTI", KITTI_HW, SD2_ATTN, 1),
+                                  ("GeoWizard NYU", NYU_HW, GEO_ATTN, 2), ("run_marigold", RUN_HW, SD2_ATTN, 1)):
+        for shape in attention_shapes(hw, 1, *attn, pair=pair):
+            cases.setdefault(shape, label)
     return cases
 
 
@@ -1508,16 +1575,18 @@ def recorded_shapes(fa):
 
 
 def phase_batched_kernels(fa) -> tuple:
-    """Phase 3c: the forward kernel at every shape phase 15's requests send it
-    (those phase 3 does not check already), and at the table's batch for a
-    10-member ensemble at 768x768, against the plain version (fp32, row by
-    row), fp32 and bf16, with bf16 times beside the plain version's, the
-    library's and the bound. Returns the largest max|d| and the bf16 rows."""
+    """Phase 3c: the forward kernel at every shape phase 15's requests and
+    phase 16's frames send it (those phase 3 does not check already), and at
+    the table's batch for a 10-member ensemble at 768x768, against the plain
+    version (fp32, row by row), fp32 and bf16, with bf16 times beside the
+    plain version's, the library's and the bound. Returns the largest max|d|
+    and the bf16 rows."""
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     worst, rows = 0.0, []
-    cases = {s: label for s, label in slice_c_attention_cases().items() if s not in ATTN_CASES}
+    cases = {s: label for s, label in {**eval_attention_cases(), **slice_c_attention_cases()}.items()
+             if s not in ATTN_CASES}
     # the table's batch for the baseline's 10 members at 768x768 (processing_res 768), a request phase 15
     # does not send: UNet level 0 and the decoder's mid block
     b768 = MarigoldPipeline.find_batch_size(BASELINE["ensemble_size"], 768)
@@ -1531,7 +1600,7 @@ def phase_batched_kernels(fa) -> tuple:
             err, rel = rel_err(out, ref)
             check(bool(torch.isfinite(out).all()), f"kernel output not finite at {shape} {dtype}")
             check(rel <= bound, f"kernel vs plain max|d|/max|plain| {rel} > {bound} at {shape} {dtype}")
-            line = (f"[batched] {label:9s} {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e}, /max|plain| "
+            line = (f"[batched] {label:13s} {str(dtype):15s} B,L,N,D={shape}: max|d|={err:.3e}, /max|plain| "
                     f"{rel:.3e} (bound {bound})")
             del ref
             if dtype == torch.bfloat16:
@@ -1613,7 +1682,8 @@ def phase_slice_c_parity(fa) -> None:
     check(max(member_err) <= bound, f"ensemble members gpu vs cpu max|d| {member_err} > {bound}")
 
     t0 = time.perf_counter()
-    checks = ensemble_checks(ens_want, got, max(member_err))
+    with traced_bfgs("phase14"):
+        checks = ensemble_checks(ens_want, got, max(member_err))
     print(f"[slice-c] fp32 256x256 {members}-member pyramid ensemble: members gpu vs cpu max|d| "
           f"{[f'{x:.3e}' for x in member_err]} (bound {bound}), {launches} kernel launches for the batch; "
           f"combine_depths on the cpu's BFGS (s, t), depth and uncertainty max|d|: the cpu's members on the card "
@@ -1625,6 +1695,55 @@ def phase_slice_c_parity(fa) -> None:
     check(checks["combine"] <= COMBINE_BOUND, f"combine_depths gpu vs cpu, same inputs: {checks}")
     check(checks["members"] <= checks["members_bound"], f"combine_depths on the card's members: {checks}")
     check(checks["drift"] <= ENSEMBLE_DRIFT, f"ensemble gpu vs cpu drift: {checks}")
+
+
+@contextlib.contextmanager
+def traced_bfgs(label: str, times: Optional[list] = None):
+    """Inside the block, every `ops.ensemble.align_depths` call (scipy's
+    BFGS) runs under `warnings.catch_warnings(record=True)`. At its end,
+    each RuntimeWarning is printed once with its file, line and count, and
+    the first call that warned has its members, arguments, (scale, shift)
+    and warnings written to WARNED_MEMBERS under `label`. `times` gets each
+    call's host ms, taken after a synchronise (the members' decode may still
+    run on the card: not the BFGS's time)."""
+    from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
+
+    align, kept, seen, calls = ens.align_depths, [], {}, []
+
+    def traced(images, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = align(images, *args, **kw)
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        where = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught if issubclass(w.category, RuntimeWarning)]
+        calls.append(len(where))
+        for key in where:
+            seen[key] = seen.get(key, 0) + 1
+        if where and not kept:
+            kept.append({"members": images.float().cpu().numpy(), "args": json.dumps([list(args), kw]),
+                         "scale": result[0], "shift": result[1], "where": json.dumps(where),
+                         "device": str(images.device)})
+        return result
+
+    ens.align_depths = traced
+    try:
+        yield
+    finally:
+        ens.align_depths = align
+    for key, n in seen.items():
+        print(f"[bfgs] {label}: RuntimeWarning x{n} at {key}", flush=True)
+    print(f"[bfgs] {label}: {sum(n > 0 for n in calls)} of {len(calls)} align_depths calls raised a "
+          f"RuntimeWarning", flush=True)
+    if kept:
+        saved = dict(np.load(WARNED_MEMBERS)) if os.path.exists(WARNED_MEMBERS) else {}
+        saved.update({f"{label}/{k}": np.asarray(v) for k, v in kept[0].items()})
+        os.makedirs(os.path.dirname(WARNED_MEMBERS), exist_ok=True)
+        np.savez_compressed(WARNED_MEMBERS, **saved)
+        print(f"[bfgs] {label}: the first members that warned ({kept[0]['members'].shape}, on "
+              f"{kept[0]['device']}) written to {WARNED_MEMBERS}", flush=True)
 
 
 def ensemble_checks(cpu_members: torch.Tensor, members: torch.Tensor, member_err: float) -> dict:
@@ -1690,7 +1809,6 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     480x640 at processing_res 0, seed 1234, the table's batch); (b) the same
     weights with an `LCMScheduler` config: 4 steps, ensemble 4, gaussian
     noise, 768x768. Returns kernel 1's launches of the path's run."""
-    from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline, loading
 
     pipe = MarigoldPipeline.from_hf_dir(ckpt, dtype=torch.bfloat16)
@@ -1701,25 +1819,13 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     batch = pipe.find_batch_size(members, max(BASELINE_HW))
     expect = request_launches(-(-members // batch), BASELINE["denoising_steps"], UNET_SITES_480x640)
     bfgs = []
-    align = ens.align_depths
-
-    def timed_align(*args, **kw):
-        torch.cuda.synchronize()  # the members' decode may still run on the card: not the BFGS's time
-        t0 = time.perf_counter()
-        result = align(*args, **kw)
-        bfgs.append((time.perf_counter() - t0) * 1e3)
-        return result
-
-    ens.align_depths = timed_align
-    try:
+    with traced_bfgs("phase15a", times=bfgs):
         reset_launches()  # the main path's run starts here
         warmup = timed_requests(pipe, image, [dict(BASELINE, seed=BASELINE_SEED)])
         torch.cuda.reset_peak_memory_stats()
         runs = timed_requests(pipe, image, [dict(BASELINE, seed=BASELINE_SEED)] * BASELINE_WARM
                               + [dict(BASELINE, seed=BASELINE_SEED + 1)])
         peak = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        ens.align_depths = align
     first, first_ms, _ = warmup[0]
     other = runs[-1][0]
     for out, _, _ in warmup + runs:
@@ -1750,7 +1856,8 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     lcm_expect = request_launches(-(-members // lcm.find_batch_size(members, max(LCM_HW))),
                                   LCM_REQUEST["denoising_steps"], UNET_SITES_768)
     torch.cuda.reset_peak_memory_stats()
-    results = timed_requests(lcm, image, [dict(LCM_REQUEST, seed=s) for s in (0, 0, 1)])
+    with traced_bfgs("phase15b"):
+        results = timed_requests(lcm, image, [dict(LCM_REQUEST, seed=s) for s in (0, 0, 1)])
     launches = read_launches()  # ... and ends here
     lcm_peak = torch.cuda.max_memory_allocated() / 2**30
     for out, _, _ in results:
@@ -1777,7 +1884,8 @@ def phase_geowizard_ensemble(fa, pipe) -> int:
     expect = request_launches(-(-members // batch), GEO_ENSEMBLE["denoising_steps"], GEO_SITES[GEO_ENSEMBLE_HW] - 2)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # the path's run starts here
-    results = timed_requests(pipe, image, [dict(GEO_ENSEMBLE, seed=s) for s in (0, 0)])
+    with traced_bfgs("phase15c"):
+        results = timed_requests(pipe, image, [dict(GEO_ENSEMBLE, seed=s) for s in (0, 0)])
     launches = read_launches()  # ... and ends here
     peak = torch.cuda.max_memory_allocated() / 2**30
     for out, _, _ in results:
@@ -1790,6 +1898,364 @@ def phase_geowizard_ensemble(fa, pipe) -> int:
     check(all(n == expect for _, _, n in results), f"GeoWizard ensemble launches {[n for _, _, n in results]}")
     check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * expect}, f"launched {launches}")
     check(np.array_equal(results[0][0].normal_np, results[1][0].normal_np), "GeoWizard: same seed, different bits")
+    return launches["flash_attention_fwd"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: slice E1, the evaluation path
+# ---------------------------------------------------------------------------
+
+
+def compiler_finds(header: str) -> bool:
+    """Whether g++ finds `header` on its include path."""
+    gxx = shutil.which("g++")
+    return gxx is not None and subprocess.run(
+        [gxx, "-E", "-x", "c++", "-"], input=f"#include <{header}>\n", capture_output=True, text=True, timeout=120,
+    ).returncode == 0
+
+
+def phase_eval_host() -> None:
+    """Phase 16a: what the host offers the path's image IO (it needs none of PIL, cv2, PyYAML)."""
+    import importlib
+
+    from diffusion_e2e_ft_tpu_torch import native_io
+    from diffusion_e2e_ft_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    built = "built" if native_io.available() else f"unavailable ({native_io.build_error()})"
+    found = {}
+    for name in ("PIL", "cv2", "yaml"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except ImportError as e:
+            found[name] = f"no ({e})"
+    print(f"[eval] host: g++ {shutil.which('g++') or 'missing'}; png.h {compiler_finds('png.h')}, jpeglib.h "
+          f"{compiler_finds('jpeglib.h')}; native_io {built} in {time.perf_counter() - t0:.1f} s; PNG decoder "
+          f"{image_io.png_decoder()}; {found}", flush=True)
+
+
+def write_config(path: str, template: str, **values) -> str:
+    """A dataset config with the keys of `config/dataset/<template>`, `values` replacing some."""
+    from diffusion_e2e_ft_tpu_torch.cli.common import load_dataset_config
+
+    cfg = {**load_dataset_config(os.path.join(REPO_DIR, "config", "dataset", template)), **values}
+    with open(path, "w") as f:
+        f.writelines(f"{k}: {v}\n" for k, v in cfg.items())
+    return path
+
+
+def synthetic_depth(rng, hw, lo: float, hi: float, holes: float) -> np.ndarray:
+    """A tilted plane from `lo` to `hi` metres with ripples; `holes` of the pixels 0 (no GT)."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw[0]), np.linspace(0, 1, hw[1]), indexing="ij")
+    depth = lo + (hi - lo) * (0.6 * yy + 0.35 * xx + 0.05 * np.sin(20 * xx) * np.cos(15 * yy))
+    depth[rng.random(hw) < holes] = 0.0
+    return depth
+
+
+def write_tar(path: str, members: dict) -> None:
+    """A tar whose members are named `./<relative path>`, as the eval archives'."""
+    import io
+    import tarfile
+
+    with tarfile.open(path, "w") as tar:
+        for name, blob in members.items():
+            info = tarfile.TarInfo("./" + name)
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+
+
+def write_nyu_tree(root: str, rng, frames: int) -> str:
+    """Phase 16b: an NYU-layout tar of `frames` 480x640 frames (an RGB PNG, a
+    16-bit depth PNG in mm, a filled-depth PNG; frame 0's RGB rows all Paeth,
+    1's Average), its filename list and its dataset config."""
+    from diffusion_e2e_ft_tpu_torch.data import image_io
+
+    members, lines, scene = {}, [], "test/kitchen_0004"
+    for i in range(frames):
+        mm = np.round(synthetic_depth(rng, NYU_HW, 1.0, 9.0, 0.05) * 1000).astype(np.uint16)
+        members[f"{scene}/rgb_{i:04d}.png"] = image_io.encode_png(
+            rng.integers(0, 256, (*NYU_HW, 3), dtype=np.uint8), filter_type=(4, 3, 2, 1)[i % 4])
+        members[f"{scene}/depth_{i:04d}.png"] = image_io.encode_png(mm)
+        members[f"{scene}/filled_{i:04d}.png"] = image_io.encode_png(np.where(mm == 0, 5000, mm).astype(np.uint16))
+        lines.append(f"{scene}/rgb_{i:04d}.png {scene}/depth_{i:04d}.png {scene}/filled_{i:04d}.png")
+    write_tar(os.path.join(root, "nyu_test.tar"), members)
+    with open(os.path.join(root, "nyu_list.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return write_config(os.path.join(root, "data_nyu.yaml"), "data_nyu_test.yaml", dir="nyu_test.tar",
+                        filenames=os.path.join(root, "nyu_list.txt"))
+
+
+def write_kitti_tree(root: str, rng) -> str:
+    """Phase 16c: a KITTI-layout directory: one 375x1242 frame with sparse
+    16-bit GT (metres x 256) and one list line without GT (`None`), which
+    the reader drops."""
+    from diffusion_e2e_ft_tpu_torch.data import image_io
+
+    drive = "2011_09_26_drive_0002_sync"
+    rgb = f"2011_09_26/{drive}/image_02/data/0000000069.png"
+    gt = f"{drive}/proj_depth/groundtruth/image_02/0000000069.png"
+    for rel, a in ((rgb, rng.integers(0, 256, (*KITTI_RAW_HW, 3), dtype=np.uint8)),
+                   (gt, np.round(synthetic_depth(rng, KITTI_RAW_HW, 4.0, 70.0, 0.8) * 256).astype(np.uint16))):
+        os.makedirs(os.path.dirname(os.path.join(root, "kitti", rel)), exist_ok=True)
+        image_io.write_png(os.path.join(root, "kitti", rel), a)
+    with open(os.path.join(root, "kitti_list.txt"), "w") as f:
+        f.write(f"{rgb} {gt} 721.5377\n2011_09_26/{drive}/image_02/data/0000000054.png None 721.5377\n")
+    return write_config(os.path.join(root, "data_kitti.yaml"), "data_kitti_eigen_test.yaml", dir="kitti",
+                        filenames=os.path.join(root, "kitti_list.txt"))
+
+
+def timed_infer(pipeline_cls, argv: list) -> tuple:
+    """`cli.infer.main(argv)` with each frame's host ms split into read +
+    decode (`DepthEvalDataset.__getitem__`), pipeline (`__call__` of
+    `pipeline_cls`, synchronised) and save (the rest, up to the next read),
+    and kernel 1's launches in each pipeline call. Returns (frames, the
+    readers' PNG decoders)."""
+    from diffusion_e2e_ft_tpu_torch.cli import infer
+    from diffusion_e2e_ft_tpu_torch.data.depth_eval import DepthEvalDataset
+    from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
+
+    frames, decoders = [], set()
+    getitem, call = DepthEvalDataset.__getitem__, pipeline_cls.__call__
+
+    def timed_getitem(self, index):
+        t0 = time.perf_counter()
+        if frames:
+            frames[-1]["save"] = (t0 - frames[-1].pop("end")) * 1e3
+        sample = getitem(self, index)
+        decoders.add(self.decoder)
+        frames.append({"read": (time.perf_counter() - t0) * 1e3})
+        return sample
+
+    def timed_call(self, *args, **kw):
+        torch.cuda.synchronize()
+        before, t0 = fa.launches["flash_attention_fwd"], time.perf_counter()
+        out = call(self, *args, **kw)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        frames[-1].update(pipeline=(end - t0) * 1e3, launches=fa.launches["flash_attention_fwd"] - before, end=end)
+        return out
+
+    DepthEvalDataset.__getitem__, pipeline_cls.__call__ = timed_getitem, timed_call
+    try:
+        infer.main(argv)
+    finally:
+        DepthEvalDataset.__getitem__, pipeline_cls.__call__ = getitem, call
+    frames[-1]["save"] = (time.perf_counter() - frames[-1].pop("end")) * 1e3
+    return frames, decoders
+
+
+def check_dump(label: str, out: str, hw, frames: list, names: list) -> None:
+    """One finite [0, 1] depth .npy of shape `hw` a frame, named `names`,
+    kernel 1 EVAL_SITES times a frame, and the arguments record."""
+    got = sorted(f for f in os.listdir(out) if f.endswith(".npy"))
+    check(got == sorted(names), f"{label}: dump {got}, expected {names}")
+    for name in names:
+        d = np.load(os.path.join(out, name))
+        check(d.shape == hw and d.dtype == np.float32 and bool(np.isfinite(d).all()), f"{label} {name}: {d.shape}")
+        check(d.min() >= 0.0 and d.max() <= 1.0, f"{label} {name}: depth outside [0, 1]")
+    check(all(f["launches"] == EVAL_SITES for f in frames), f"{label}: kernel 1 launches a frame "
+          f"{[f['launches'] for f in frames]}, expected {EVAL_SITES}")
+    check(os.path.exists(os.path.join(out, "arguments.txt")), f"{label}: no arguments.txt")
+
+
+def print_frames(label: str, hw, frames: list, decoders: set) -> None:
+    warm = frames[1:] or frames
+    med = {k: statistics.median(f[k] for f in warm) for k in ("read", "pipeline", "save")}
+    print(f"[eval] infer {label} {hw[0]}x{hw[1]}, bf16, 1 step, PNG decoder {sorted(decoders)}: host ms a frame "
+          f"(read+decode / pipeline / save) {[[round(f[k], 2) for k in ('read', 'pipeline', 'save')] for f in frames]}; "
+          f"warm median {med['read']:.2f} / {med['pipeline']:.2f} / {med['save']:.2f} "
+          f"({1e3 / sum(med.values()):.2f} frames/s); kernel 1 a frame {[f['launches'] for f in frames]}", flush=True)
+
+
+def quiet(fn, *args):
+    """`fn(*args)` with its standard output dropped (the eval CLIs print their tables)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def rel_diff(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want)
+
+
+def phase_eval_path(fa, ckpt: str) -> int:
+    """Phase 16 (a-g), slice E1's main path on phase 6's HF directory, bf16,
+    through the port's CLIs with `--device cuda`: `infer` on synthetic NYU
+    and KITTI trees at native resolution; `eval_depth` on the dumps (both
+    alignments; cuda against cpu; a known-answer case); `eval_normals` on a
+    DSINE nyuv2 tree; `run_marigold` on a folder of 576x768 PNGs, once under
+    `--profile_dir`. Returns kernel 1's launches of the path's run."""
+    from diffusion_e2e_ft_tpu_torch.cli import eval_depth, eval_normals, run_marigold
+    from diffusion_e2e_ft_tpu_torch.cli.common import load_dataset_config
+    from diffusion_e2e_ft_tpu_torch.data import depth_eval, image_io
+    from diffusion_e2e_ft_tpu_torch.evaluation import metrics
+    from diffusion_e2e_ft_tpu_torch.ops import image as im
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    phase_eval_host()
+    write_scheduler(ckpt)  # phase 15 left an LCMScheduler config there
+    rng = np.random.default_rng(16)
+    cuda = ["--device", "cuda"]
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        nyu, kitti = write_nyu_tree(work, rng, NYU_FRAMES), write_kitti_tree(work, rng)
+        print(f"[eval] synthetic NYU tar ({NYU_FRAMES} frames) and KITTI tree written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # the path's run starts here
+        # (d) the depth dumps
+        dumps = {}
+        for label, config, hw, names in (
+            ("NYU", nyu, NYU_HW, [f"pred_{i:04d}.npy" for i in range(NYU_FRAMES)]),
+            ("KITTI cold", kitti, KITTI_HW, ["pred_0000000069.npy"]),  # the first call at this shape
+            ("KITTI", kitti, KITTI_HW, ["pred_0000000069.npy"]),
+        ):
+            out = os.path.join(work, "infer_" + label)
+            t0 = time.perf_counter()
+            frames, decoders = timed_infer(MarigoldPipeline, [
+                "--checkpoint", ckpt, "--dataset_config", config, "--base_data_dir", work, "--output_dir", out,
+                "--half_precision", "--processing_res", "0", "--denoise_steps", "1", "--noise", "zeros", *cuda])
+            print(f"[eval] cli.infer {label}: {time.perf_counter() - t0:.1f} s with the checkpoint's load", flush=True)
+            check_dump(label, out, hw, frames, names)
+            print_frames(label, hw, frames, decoders)
+            dumps[label] = (config, out)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[eval] peak device memory of the dumps {peak:.3f} GiB", flush=True)
+
+        # (e) the depth eval: both alignments on the card, the same files on the cpu, and a known answer
+        dataset = depth_eval.get_depth_dataset(load_dataset_config(nyu), work, depth_eval.DatasetMode.EVAL)
+        known = {"least_square": lambda gt: 0.37 * gt + 0.05,
+                 "least_square_disparity": lambda gt: np.where(gt > 0, 0.5 / np.maximum(gt, 1e-6) + 0.1, 0.0)}
+        for alignment, affine in known.items():
+            pred_dir = os.path.join(work, "known_" + alignment)
+            os.makedirs(pred_dir)
+            for i in range(len(dataset)):
+                np.save(os.path.join(pred_dir, dataset.pred_name(i)),
+                        affine(dataset[i]["depth_raw_linear"]).astype(np.float32))
+            dumps["known " + alignment] = (nyu, pred_dir)
+        for label, (config, pred_dir) in dumps.items():
+            if label == "KITTI cold":
+                continue
+            for alignment in known:
+                if label.startswith("known") and not label.endswith(alignment):
+                    continue
+                t0 = time.perf_counter()
+                results = {dev: quiet(eval_depth.main, [
+                    "--dataset_config", config, "--base_data_dir", work, "--prediction_dir", pred_dir,
+                    "--alignment", alignment, "--output_dir", os.path.join(work, f"eval_{label}_{alignment}_{dev}"),
+                    "--device", dev]) for dev in ("cuda", "cpu")}
+                seconds = time.perf_counter() - t0
+                got = results["cuda"]
+                check(list(got) == list(metrics.DEPTH_METRIC_FUNCS) and all(np.isfinite(v) for v in got.values()),
+                      f"eval {label} {alignment}: {got}")
+                check(sorted(os.listdir(os.path.join(work, f"eval_{label}_{alignment}_cuda"))) ==
+                      sorted(["per_sample_metrics.csv", f"eval_metrics-{alignment}.txt"]), f"eval {label}: files")
+                if label.startswith("known"):  # float32 rounding on both devices: no relative comparison
+                    for dev, res in results.items():
+                        check(res["abs_relative_difference"] <= KNOWN_ANSWER_ABS_REL and res["delta1_acc"] == 1.0,
+                              f"known answer {alignment} on {dev}: {res}")
+                    comparison = (f"abs_rel on the cpu {results['cpu']['abs_relative_difference']:.3g} (bound "
+                                  f"{KNOWN_ANSWER_ABS_REL} on both)")
+                else:
+                    rel = rel_diff(got, results["cpu"])
+                    check(rel <= EVAL_CPU_RTOL, f"eval {label} {alignment}: cuda vs cpu {rel} > {EVAL_CPU_RTOL}")
+                    comparison = f"cuda vs cpu max rel {rel:.2e} (bound {EVAL_CPU_RTOL})"
+                print(f"[eval] eval_depth {label} {alignment}, cuda: abs_rel {got['abs_relative_difference']:.6g}, "
+                      f"delta1 {got['delta1_acc']:.6g}, rmse {got['rmse_linear']:.6g}; {comparison}; both "
+                      f"{seconds:.2f} s", flush=True)
+
+        # (f) the normals: Marigold normals in bf16 over a DSINE nyuv2 tree
+        scene = os.path.join(work, "dsine_eval", "nyuv2", "scene0")
+        os.makedirs(scene)
+        for i in range(2):
+            stem = os.path.join(scene, f"{i:06d}")
+            image_io.write_png(stem + "_img.png", rng.integers(0, 256, (*NYU_HW, 3), dtype=np.uint8))
+            n = rng.normal(size=(*NYU_HW, 3))
+            n8 = ((n / np.linalg.norm(n, axis=-1, keepdims=True) + 1) / 2 * 255).astype(np.uint8)
+            n8[:8] = 0  # rows without GT
+            image_io.write_png(stem + "_normal.png", n8, filter_type=4)
+            np.save(stem + "_intrins.npy", np.array([[518.8, 0, 325.6], [0, 519.5, 253.7], [0, 0, 1]]))
+        split = os.path.join(work, "dsine_eval", "nyuv2", "test.txt")
+        with open(split, "w") as f:
+            f.write("scene0/000000_img.png\nscene0/000001_img.png\n")
+        before, t0 = fa.launches["flash_attention_fwd"], time.perf_counter()
+        eval_normals.main(["--checkpoint", ckpt, "--base_data_dir", work, "--eval_data", "nyuv2", "--split_paths",
+                           f"nyuv2={split}", "--output_dir", os.path.join(work, "normals"), "--half_precision", *cuda])
+        seconds, done = time.perf_counter() - t0, fa.launches["flash_attention_fwd"] - before
+        with open(os.path.join(work, "normals", "nyuv2_metrics.txt")) as f:
+            header, values = f.read().split("\n")[:2]
+        check(header.split() == ["mean", "median", "rmse", "a1", "a2", "a3", "a4", "a5"] and len(values.split()) == 8
+              and all(np.isfinite(float(v)) for v in values.split()), f"nyuv2_metrics.txt: {header!r} {values!r}")
+        check(done == 2 * EVAL_SITES, f"eval_normals: {done} kernel 1 launches for 2 frames")
+        print(f"[eval] eval_normals nyuv2, 2 frames 480x640, bf16: {values.split()} in {seconds:.1f} s with the "
+              f"checkpoint's load; kernel 1 {done}", flush=True)
+
+        # (g) run_marigold over a folder of 576x768 PNGs, then again under the profiler
+        images = os.path.join(work, "images")
+        os.makedirs(images)
+        for stem, filter_type in (("a", 4), ("b", 0)):
+            image_io.write_png(os.path.join(images, f"{stem}.png"),
+                               rng.integers(0, 256, (*RUN_HW, 3), dtype=np.uint8), filter_type)
+        for run, extra in (("run", []), ("profiled", ["--profile_dir", os.path.join(work, "trace")])):
+            out = os.path.join(work, run)
+            before, t0 = fa.launches["flash_attention_fwd"], time.perf_counter()
+            quiet(run_marigold.main, ["--checkpoint", ckpt, "--input_rgb_dir", images, "--output_dir", out,
+                                      "--half_precision", *extra, *cuda])
+            seconds, done = time.perf_counter() - t0, fa.launches["flash_attention_fwd"] - before
+            check(done == 2 * EVAL_SITES, f"run_marigold {run}: {done} kernel 1 launches for 2 frames")
+            for stem in ("a", "b"):
+                depth = np.load(os.path.join(out, "depth_npy", f"{stem}_pred.npy"))
+                bw = image_io.read_image(os.path.join(out, "depth_bw", f"{stem}_bw.png"))
+                colored = image_io.read_image(os.path.join(out, "depth_colored", f"{stem}_colored.png"))
+                check(depth.shape == RUN_HW and bw.dtype == np.uint16 and np.array_equal(bw, im.to_uint16(depth)),
+                      f"run_marigold {stem}: depth_bw does not read back as to_uint16(depth_np)")
+                check(colored.shape == (*RUN_HW, 3) and colored.dtype == np.uint8, f"depth_colored {colored.shape}")
+            print(f"[eval] run_marigold {run}, 2 frames 576x768, bf16: {seconds:.1f} s with the checkpoint's load; "
+                  f"kernel 1 {done}; depth_bw reads back as to_uint16(depth_np)", flush=True)
+        with open(os.path.join(work, "trace", "trace.json")) as f:
+            trace = f.read()
+        check("flash_fwd" in trace, "run_marigold --profile_dir: no kernel 1 in the trace")
+        print(f"[eval] run_marigold --profile_dir: trace.json {len(trace) / 2**20:.1f} MiB with kernel 1's device "
+              f"events", flush=True)
+    launches = read_launches()  # ... and ends here
+    expect = (NYU_FRAMES + 2 + 2 + 4) * EVAL_SITES  # the dumps, the normals, two run_marigold runs
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": expect},
+          f"the eval path launched {launches}, expected {expect} kernel 1")
+    return launches["flash_attention_fwd"]
+
+
+def phase_eval_geowizard(fa, geo_pipe) -> int:
+    """Phase 16d, GeoWizard: slice B's bf16 weights written as an HF
+    directory and two NYU frames (the first cold) through `cli.infer
+    --model_type geowizard` (joint attention at 480x640). Returns kernel 1's
+    launches of the run."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import GeoWizardPipeline, loading
+
+    with tempfile.TemporaryDirectory() as work:
+        ckpt, p = os.path.join(work, "geowizard"), geo_pipe
+        write_hf_dir(ckpt, {
+            "unet": (p.unet, loading.unet_config_to_hf(p.unet.config), "diffusion_pytorch_model.bin"),
+            "vae": (p.vae, loading.vae_config_to_hf(p.vae.config), "diffusion_pytorch_model.bin"),
+            "image_encoder": (p.image_encoder, loading.vision_config_to_hf(p.image_encoder.config),
+                              "pytorch_model.bin"),
+        })
+        config = write_nyu_tree(work, np.random.default_rng(17), 2)
+        out = os.path.join(work, "infer")
+        reset_launches()  # the path's run starts here
+        t0 = time.perf_counter()
+        frames, decoders = timed_infer(GeoWizardPipeline, [
+            "--checkpoint", ckpt, "--model_type", "geowizard", "--domain", "indoor", "--dataset_config", config,
+            "--base_data_dir", work, "--output_dir", out, "--half_precision", "--processing_res", "0", "--device",
+            "cuda"])
+        seconds = time.perf_counter() - t0
+        launches = read_launches()  # ... and ends here
+        check_dump("GeoWizard NYU", out, NYU_HW, frames, ["pred_0000.npy", "pred_0001.npy"])
+        with open(os.path.join(out, "arguments.txt")) as f:
+            check("model_type: geowizard" in f.read(), "GeoWizard dump: arguments.txt")
+    print(f"[eval] cli.infer --model_type geowizard: {seconds:.1f} s with the checkpoint's load", flush=True)
+    print_frames("GeoWizard NYU", NYU_HW, frames, decoders)
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * EVAL_SITES}, f"launched {launches}")
     return launches["flash_attention_fwd"]
 
 
@@ -1833,6 +2299,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         with recorded_shapes(fa) as slice_c_shapes:
             launches["flash_attention_fwd"] += phase_marigold_ensembles(fa, ckpt)  # slice C's main path
+        gc.collect()
+        torch.cuda.empty_cache()
+        with recorded_shapes(fa) as eval_shapes:
+            launches["flash_attention_fwd"] += phase_eval_path(fa, ckpt)  # slice E1's main path
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1861,6 +2331,12 @@ def main() -> int:
     check(slice_c_shapes == set(slice_c_attention_cases()),
           f"slice C's requests sent kernel 1 {sorted(slice_c_shapes)}, phase 3c expected {sorted(slice_c_attention_cases())}")
     launches["flash_attention_fwd_mh"] = geo_path["flash_attention_fwd_mh"]
+    with recorded_shapes(fa) as geo_eval_shapes:
+        launches["flash_attention_fwd"] += phase_eval_geowizard(fa, geo_pipe)
+    # phase 3c held kernel 1 against its plain version at every shape the eval path's frames sent it
+    eval_shapes |= geo_eval_shapes
+    check(eval_shapes == set(eval_attention_cases()),
+          f"the eval path sent kernel 1 {sorted(eval_shapes)}, phase 3c expected {sorted(eval_attention_cases())}")
     del geo_pipe
     gc.collect()
     torch.cuda.empty_cache()

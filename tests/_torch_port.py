@@ -9,6 +9,8 @@ its own converter.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import torch
@@ -61,6 +63,30 @@ def read_key_inventory(name: str) -> dict:
         key, shape = line.split()
         out[key] = tuple(int(s) for s in shape.split(","))
     return out
+
+
+TINY_VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_groups=4)
+TINY_TEXT = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64)
+
+
+def write_tiny_checkpoint(path) -> str:
+    """A tiny Marigold HF pipeline directory written by the JAX package: the
+    tiny UNet, a 4-level VAE and a 2-layer text encoder, seeded numpy weights."""
+    import jax.numpy as jnp
+
+    from diffusion_e2e_ft_tpu.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
+    from diffusion_e2e_ft_tpu.models import clip
+    from diffusion_e2e_ft_tpu.ops import scheduler as jsched
+    from diffusion_e2e_ft_tpu.pipelines import loading
+
+    ucfg, vcfg = UNetConfig.tiny(), VAEConfig(**TINY_VAE)
+    up = random_flax_params(UNet2DCondition(ucfg), 0, jnp.ones((1, 8, 8, 8)), jnp.asarray(999), jnp.ones((1, 2, 32)))
+    vp = random_flax_params(AutoencoderKL(vcfg), 1, jnp.ones((1, 64, 64, 3)))
+    loading.save_pipeline_dir(str(path), ucfg, up, vcfg, vp, jsched.SchedulerConfig())
+    tcfg = clip.CLIPTextConfig(**TINY_TEXT)
+    tp = random_flax_params(clip.CLIPTextModel(tcfg), 2, jnp.ones((1, 2), jnp.int32))
+    loading.save_text_encoder(os.path.join(str(path), "text_encoder"), tcfg, tp)
+    return str(path)
 
 
 def geowizard_flax_params(unet_config, vae_config, vision_config, seed: int) -> dict:

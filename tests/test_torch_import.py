@@ -48,6 +48,22 @@ def test_port_modules_listed():
         "diffusion_e2e_ft_tpu_torch.training.optim",
         "diffusion_e2e_ft_tpu_torch.training.trainer",
         "diffusion_e2e_ft_tpu_torch.utils.logging",
+        "diffusion_e2e_ft_tpu_torch.utils.seeding",
+        "diffusion_e2e_ft_tpu_torch.native_io",
+        "diffusion_e2e_ft_tpu_torch.data.image_io",
+        "diffusion_e2e_ft_tpu_torch.data.splits",
+        "diffusion_e2e_ft_tpu_torch.data.depth_eval",
+        "diffusion_e2e_ft_tpu_torch.data.normal_eval",
+        "diffusion_e2e_ft_tpu_torch.evaluation.metrics",
+        "diffusion_e2e_ft_tpu_torch.evaluation.alignment",
+        "diffusion_e2e_ft_tpu_torch.evaluation.depth_bench",
+        "diffusion_e2e_ft_tpu_torch.evaluation.normal_bench",
+        "diffusion_e2e_ft_tpu_torch.cli.common",
+        "diffusion_e2e_ft_tpu_torch.cli.infer",
+        "diffusion_e2e_ft_tpu_torch.cli.eval_depth",
+        "diffusion_e2e_ft_tpu_torch.cli.eval_normals",
+        "diffusion_e2e_ft_tpu_torch.cli.run_marigold",
+        "diffusion_e2e_ft_tpu_torch.cli.run_geowizard",
     ):
         assert expected in mods
 

@@ -29,10 +29,7 @@ import pytest
 import torch
 
 import _torch_port
-from _torch_port import ENSEMBLE_DRIFT, feed_draws, nchw, random_flax_params, record
-from diffusion_e2e_ft_tpu.models import AutoencoderKL as JVAE, UNet2DCondition as JUNet
-from diffusion_e2e_ft_tpu.models import UNetConfig as JUNetConfig, VAEConfig as JVAEConfig
-from diffusion_e2e_ft_tpu.models import clip as jclip
+from _torch_port import ENSEMBLE_DRIFT, feed_draws, nchw, record
 from diffusion_e2e_ft_tpu.ops import ensemble as jens
 from diffusion_e2e_ft_tpu.ops import image as jim
 from diffusion_e2e_ft_tpu.ops import noise as jnoise
@@ -45,8 +42,6 @@ from diffusion_e2e_ft_tpu_torch.pipelines import loading as tloading
 from diffusion_e2e_ft_tpu_torch.ops import ensemble as tens
 from diffusion_e2e_ft_tpu_torch.pipelines.marigold import MarigoldOutput, MarigoldPipeline
 
-TINY_VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_groups=4)
-TINY_TEXT = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64)
 SEED, STEPS = 7, 3
 LATENT = (1, 8, 6, 4)  # one member's JAX latent (NHWC) for the 64 x 48 image
 # An ensemble's members through `__call__`, by task: depth 1e-3 (the min-max amplification above); normals
@@ -61,15 +56,7 @@ def jax_member_latents(noise: str, seed: int, members: int) -> list:
 
 @pytest.fixture(scope="module")
 def checkpoint(tmp_path_factory):
-    path = tmp_path_factory.mktemp("ckpt")
-    ucfg, vcfg = JUNetConfig.tiny(), JVAEConfig(**TINY_VAE)
-    up = random_flax_params(JUNet(ucfg), 0, jnp.ones((1, 8, 8, 8)), jnp.asarray(999), jnp.ones((1, 2, 32)))
-    vp = random_flax_params(JVAE(vcfg), 1, jnp.ones((1, 64, 64, 3)))
-    jloading.save_pipeline_dir(str(path), ucfg, up, vcfg, vp, jsched.SchedulerConfig())
-    tcfg = jclip.CLIPTextConfig(**TINY_TEXT)
-    tp = random_flax_params(jclip.CLIPTextModel(tcfg), 2, jnp.ones((1, 2), jnp.int32))
-    jloading.save_text_encoder(str(path / "text_encoder"), tcfg, tp)
-    return str(path)
+    return _torch_port.write_tiny_checkpoint(tmp_path_factory.mktemp("ckpt"))
 
 
 @pytest.fixture(scope="module")
