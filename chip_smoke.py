@@ -134,7 +134,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (g) `cli.run_marigold` over two 576x768 PNGs, then again under
    `--profile_dir` (kernel 1 in the trace): `depth_bw` read back by the
    port's decoder equals `to_uint16(depth_np)`. The shapes kernel 1 ran at
-   must be those phase 3c held against the plain version.
+   must be those phase 3c held against the plain version;
+17. slice E2's main path, the training data, on phase 6's HF directory: (a)
+   which of PIL, cv2, pandas and h5py import (the readers need PIL; without
+   h5py, 17b feeds the frames' arrays to `preprocess_scene_frames`); (b) a
+   synthetic raw Hypersim tree (18 frames of 768x1024 linear HDR colour,
+   distance with NaN pixels, render-entity ids with -1, the
+   `geometry_preview` normal PNGs) through `cli.preprocess_hypersim --device
+   cuda`, one scene's PNGs and CSV rows held against `--device cpu` (rgb 1
+   level, depth 1 mm, rows equal), ms a frame; (c) a synthetic VKITTI2 tree
+   (two 375x1242 frames, JPEG rgb, 16-bit cm depth with a ground plane, a
+   slanted wall, a box and the sky) through `cli.gen_vkitti_normals --device
+   cuda`, the normals held against `depth_to_normal(..., device="cpu")` in
+   float64 (1e-12), the MRF choice equal on every pixel, the written PNGs
+   within 1 LSB, ms a frame on the card and the CPU; (d) the real
+   `cli.train` on the two trees, bf16, UNet checkpointing, bs 2, two 9:1
+   epochs, for normals and for depth: both shapes (480x640 and the VKITTI2
+   crop's 352x1216) ran, finite losses, `step_launches(15)` a step at each,
+   every kernel launched only at a shape phases 3, 3c, 4 and 4b hold against
+   the plain version, ms/step at each shape, peak memory, each reader's host
+   ms a sample, the step loop's waits on `Prefetcher`, and the export loading
+   with `MarigoldPipeline.from_hf_dir`.
 
 Phase 3c runs the forward kernel at every shape phase 15's requests send
 it, worked out from their sizes: the baseline's chunk of 10 at 480x640
@@ -150,7 +170,13 @@ by row; and at every shape phase 16's frames send it: NYU's 480x640
 20, 64], [1, 6688, 1, 512]) and GeoWizard's 480x640 ([1, 9600, 8, 40], [1,
 2400, 8, 80], [1, 600, 8, 160]; its decode at [2, 4800, 1, 512] is phase
 3's).
-Phases 3, 4 and 4b include the joint step's new shapes: the VAE mid
+Phases 3, 4 and 4b include the VKITTI2 step's shapes (352x1216 bs 2, a
+44x152 latent): kernel 1 at the frozen encoder's [2, 6688, 1, 512], kernels
+3-5 at [2, 6688, 5, 64], [2, 1672, 10, 64], [2, 418, 20, 64] and the
+decoder's [2, 6688, 1, 512], and the VAE's GN -> conv pairs at 352x1216,
+176x608, 88x304 and 44x152 (widths ragged against the conv's 64-pixel
+tiles), with the GroupNorm kernels' sums per VKITTI2 step. They include the
+joint step's new shapes: the VAE mid
 attention at [2, 4800, 1, 512] and [4, 4800, 1, 512] (the decoder at 2B
 under grad) and every GN -> conv shape of the encoder at B = 2 and 4 and the
 decoder at B = 4, with the GroupNorm kernels' sums per joint step.
@@ -210,6 +236,7 @@ ATTN_CASES = [
     (2, 4800, 1, 64),  # 480x640 level 0
     (2, 4800, 1, 512),  # the 480x640 bs-2 frozen encoder's mid block (every train step)
     (4, 4800, 1, 512),  # ... of GeoWizard's GT geometry at 2B (its diffusion-loss step)
+    (2, 6688, 1, 512),  # ... at 352x1216 bs 2, the VKITTI2 step of the 9:1 mix (phase 17)
     (2, 300, 3, 64),  # ragged: 2 * 128 + 44, 4 * 64 + 44
     (3, 300, 1, 512),  # ragged: 4 * 64 + 44, 9 * 32 + 12 (fp32 18 * 16 + 12)
     (2, 257, 3, 64),  # one valid column in the last KV tile
@@ -233,6 +260,10 @@ BWD_TRAIN_CASES = [
     (2, 2400, 8, 80),  # level 1
     (2, 600, 8, 160),  # level 2: 9 * 64 + 24, 18 * 32 + 24
     (4, 4800, 1, 512),  # GeoWizard's VAE decoder mid block at 2B (differentiated)
+    (2, 6688, 5, 64),  # SD2's VKITTI2 step at 352x1216 bs 2 (a 44x152 latent): UNet level 0
+    (2, 1672, 10, 64),  # level 1
+    (2, 418, 20, 64),  # level 2, ragged: 6 * 64 + 34, 13 * 32 + 2
+    (2, 6688, 1, 512),  # VAE decoder mid (differentiated)
 ]
 BWD_CASES = BWD_TRAIN_CASES + [
     (2, 300, 3, 64),
@@ -242,12 +273,24 @@ BWD_CASES = BWD_TRAIN_CASES + [
     (1, 257, 4, 160),  # one valid row in the last tile, either side
 ]
 GRAD_ROUTE_SHAPE = (4, 4800, 8, 40)  # GeoWizard's joint [2B, L, N, D] at 480x640 bs 2, under grad
-# The SD VAE's GN -> conv pairs at 480x640, (C, H, W, Cout): how many. The encoder's 20 (5 ResnetBlocks of
-# its 4 levels and mid block, two pairs each) and the decoder's 28 (14 ResnetBlocks).
-ENCODER_PAIRS = {(128, 480, 640, 128): 4, (128, 240, 320, 256): 1, (256, 240, 320, 256): 3,
-                 (256, 120, 160, 512): 1, (512, 120, 160, 512): 3, (512, 60, 80, 512): 8}
-DECODER_PAIRS = {(512, 60, 80, 512): 10, (512, 120, 160, 512): 6, (512, 240, 320, 256): 1,
-                 (256, 240, 320, 256): 5, (256, 480, 640, 128): 1, (128, 480, 640, 128): 5}
+
+
+def vae_pairs(h: int, w: int) -> tuple:
+    """The SD VAE's GN -> conv pairs at an h x w image, (C, H, W, Cout): how many. The encoder's 20 (5
+    ResnetBlocks of its 4 levels and mid block, two pairs each) and the decoder's 28 (14 ResnetBlocks)."""
+    def at(level):
+        return h >> level, w >> level
+
+    encoder = {(128, *at(0), 128): 4, (128, *at(1), 256): 1, (256, *at(1), 256): 3,
+               (256, *at(2), 512): 1, (512, *at(2), 512): 3, (512, *at(3), 512): 8}
+    decoder = {(512, *at(3), 512): 10, (512, *at(2), 512): 6, (512, *at(1), 256): 1,
+               (256, *at(1), 256): 5, (256, *at(0), 128): 1, (128, *at(0), 128): 5}
+    return encoder, decoder
+
+
+ENCODER_PAIRS, DECODER_PAIRS = vae_pairs(480, 640)
+VKITTI_HW = (352, 1216)  # the VKITTI2 reader's KITTI-benchmark crop: one batch in ten of the 9:1 mix
+VKITTI_ENCODER_PAIRS, VKITTI_DECODER_PAIRS = vae_pairs(*VKITTI_HW)
 VAE_PAIRS = sum(ENCODER_PAIRS.values()) + sum(DECODER_PAIRS.values())  # 48
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -359,8 +402,10 @@ def pair_launches(*parts) -> dict:
 GN_TRAIN_LAUNCHES = pair_launches((2, ENCODER_PAIRS), (2, DECODER_PAIRS))
 GN_JOINT_LAUNCHES = pair_launches((2, ENCODER_PAIRS), (4, DECODER_PAIRS))
 GN_JOINT_DIFFUSION_LAUNCHES = pair_launches((2, ENCODER_PAIRS), (4, ENCODER_PAIRS))
+GN_VKITTI_LAUNCHES = pair_launches((2, VKITTI_ENCODER_PAIRS), (2, VKITTI_DECODER_PAIRS))  # SD2's VKITTI2 step
 # (B, C, H, W, Cout): every GN -> conv shape of those steps (timed in bf16), then ragged ones
-GN_TRAIN_SHAPES = list(dict.fromkeys([*GN_TRAIN_LAUNCHES, *GN_JOINT_LAUNCHES, *GN_JOINT_DIFFUSION_LAUNCHES]))
+GN_TRAIN_SHAPES = list(dict.fromkeys([*GN_TRAIN_LAUNCHES, *GN_JOINT_LAUNCHES, *GN_JOINT_DIFFUSION_LAUNCHES,
+                                      *GN_VKITTI_LAUNCHES]))
 GN_CASES = GN_TRAIN_SHAPES + [
     (1, 128, 37, 53, 128),  # ragged: 1961 pixels = 15 * 128 + 41; odd rows for the 16-byte vectors
     (2, 256, 1, 77, 128),  # H = 1: every tap but the middle row is padding
@@ -771,7 +816,8 @@ def phase_gn_kernels() -> dict:
         return sum(k * rows[s][name][key] for s, k in step.items())
 
     for label, step in (("SD2 train step", GN_TRAIN_LAUNCHES), ("GeoWizard joint E2E step", GN_JOINT_LAUNCHES),
-                        ("GeoWizard diffusion-loss step", GN_JOINT_DIFFUSION_LAUNCHES)):
+                        ("GeoWizard diffusion-loss step", GN_JOINT_DIFFUSION_LAUNCHES),
+                        ("SD2 VKITTI2 step (352x1216)", GN_VKITTI_LAUNCHES)):
         print(f"[gn] per {label} ({sum(step.values())} launches each, bf16), events: "
               + ", ".join(f"{n.replace('gn_', '')} {step_sum(n, 'ms', step):.3f} ms (bound "
                           f"{step_sum(n, 'bound_ms', step):.3f})" for n in names)
@@ -790,6 +836,8 @@ def phase_gn_kernels() -> dict:
                 "per_step_ms": step_sum(n, "ms"), "per_step_bound_ms": step_sum(n, "bound_ms"),
                 "per_joint_step_ms": step_sum(n, "ms", GN_JOINT_LAUNCHES),
                 "per_joint_step_bound_ms": step_sum(n, "bound_ms", GN_JOINT_LAUNCHES),
+                "per_vkitti_step_ms": step_sum(n, "ms", GN_VKITTI_LAUNCHES),
+                "per_vkitti_step_bound_ms": step_sum(n, "bound_ms", GN_VKITTI_LAUNCHES),
                 "shapes": [rows[s][n] for s in GN_TRAIN_SHAPES if s != GN_CASES[0]]} for n in names}
 
 
@@ -2259,6 +2307,399 @@ def phase_eval_geowizard(fa, geo_pipe) -> int:
     return launches["flash_attention_fwd"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: slice E2, the training-data path
+# ---------------------------------------------------------------------------
+
+HYPERSIM_RAW_HW = (768, 1024)  # Hypersim's frames; its reader resizes them to 480x640
+HYPERSIM_SCENES, HYPERSIM_SCENE_FRAMES = 2, 9  # 18 frames: 9 batches of 2 beside VKITTI2's 1, a 9:1 epoch
+VKITTI_FRAMES = 2
+E2_EPOCH = 10  # one epoch of the 9:1 mix: 9 Hypersim batches and 1 VKITTI2 batch
+E2_STEPS = 2 * E2_EPOCH  # two epochs: the second VKITTI2 step is the first warm one at its shape
+# D2NT, float64 normals, the card vs the CPU: the same operations in the same order; only the soft-min's
+# pow (CUDA's against the CPU's, a few ulps) may differ, and the MRF choice is held equal exactly
+D2NT_CPU_BOUND = 1e-12
+HYPERSIM_RGB_LEVELS, HYPERSIM_DEPTH_MM = 1, 1  # the written PNGs, --device cuda vs cpu
+
+
+def phase_data_host() -> bool:
+    """Phase 17a: which of PIL, cv2, pandas and h5py import. The readers need
+    PIL (JPEG and 8-bit PNG decodes, the resize); without h5py, phase 17b
+    feeds the frames' arrays to `preprocess_scene_frames` instead of the CLI."""
+    import importlib
+
+    found = {}
+    for name in ("PIL", "cv2", "pandas", "h5py"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except ImportError as e:
+            found[name] = None
+            print(f"[data] {name} does not import: {e}", flush=True)
+    print(f"[data] host: {found}", flush=True)
+    check(found["PIL"] is not None, "PIL does not import: the training readers need it (JPEG, 8-bit PNG, resize)")
+    if found["h5py"] is None:
+        print("[data] no h5py: phase 17b feeds the frames' arrays to preprocess_scene_frames (the CLI's "
+              "HDF5 reader is covered by the CPU tests)", flush=True)
+    return found["h5py"] is not None
+
+
+def hypersim_frame(rng, hw, index: int) -> tuple:
+    """One synthetic raw Hypersim frame: linear HDR colour, distance to the
+    camera centre in metres (a tilted floor, a box in front of it, a few NaN
+    pixels with no hit) and render-entity ids (-1 on a window of no geometry)."""
+    h, w = hw
+    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32), np.linspace(0, 1, w, dtype=np.float32),
+                         indexing="ij")
+    shade = (0.2 + xx * (1 + index % 3) + 0.5 * yy)[..., None]
+    rgb = (rng.gamma(2.0, 0.5, (h, w, 3)).astype(np.float32) * shade * (0.5 + index / 4)).astype(np.float32)
+    distance = (2.0 + 12.0 * (1 - yy) + 3.0 * xx).astype(np.float32)
+    distance[h // 3 : h // 2, w // 4 + 20 * index : w // 2 + 20 * index] = 1.5
+    distance[:4, :4] = np.nan
+    entity = rng.integers(0, 50, (h, w)).astype(np.int32)
+    entity[h // 8 : h // 4, w // 8 : w // 3] = -1
+    return rgb, distance, entity
+
+
+def write_hypersim_raw(root: str, out_dir: str, rng, with_h5py: bool) -> dict:
+    """Phase 17b's raw tree: HYPERSIM_SCENES scenes of HYPERSIM_SCENE_FRAMES
+    frames (HDF5 where h5py imports), and the `geometry_preview` normal PNGs
+    the reader takes from `<out_dir>/normals`. Returns {scene: [frames]}."""
+    from diffusion_e2e_ft_tpu_torch.data import image_io
+
+    scenes = {}
+    for s in range(HYPERSIM_SCENES):
+        scene = f"ai_001_{s + 1:03d}"
+        color = os.path.join(root, scene, "images", "scene_cam_00_final_hdf5")
+        geom = os.path.join(root, scene, "images", "scene_cam_00_geometry_hdf5")
+        normals = os.path.join(out_dir, "normals", scene, "images", "scene_cam_00_geometry_preview")
+        for d in (color, geom, normals):
+            os.makedirs(d)
+        scenes[scene] = []
+        for i in range(HYPERSIM_SCENE_FRAMES):
+            frame = f"{i:04d}"
+            rgb, distance, entity = hypersim_frame(rng, HYPERSIM_RAW_HW, s * HYPERSIM_SCENE_FRAMES + i)
+            scenes[scene].append((frame, rgb, distance, entity))
+            if with_h5py:
+                import h5py
+
+                for path, array in ((os.path.join(color, f"frame.{frame}.color.hdf5"), rgb),
+                                    (os.path.join(geom, f"frame.{frame}.depth_meters.hdf5"), distance),
+                                    (os.path.join(geom, f"frame.{frame}.render_entity_id.hdf5"), entity)):
+                    with h5py.File(path, "w") as f:
+                        f.create_dataset("dataset", data=array)
+            n = rng.normal(size=(*HYPERSIM_RAW_HW, 3))
+            n8 = ((n / np.linalg.norm(n, axis=-1, keepdims=True) + 1) / 2 * 255).astype(np.uint8)
+            image_io.write_png(os.path.join(normals, f"frame.{frame}.normal_cam.png"), n8)
+    return scenes
+
+
+def run_preprocess(raw: str, out: str, device: str, scenes: dict, with_h5py: bool) -> str:
+    """`cli.preprocess_hypersim` on `device` (or, without h5py, the same frames'
+    arrays through `preprocess_scene_frames`); returns the CSV's path."""
+    from diffusion_e2e_ft_tpu_torch.cli import preprocess_hypersim
+    from diffusion_e2e_ft_tpu_torch.tools import hypersim_preprocess as hp
+
+    if with_h5py:
+        return quiet(preprocess_hypersim.main, ["--hypersim_raw_dir", raw, "--output_dir", out, "--device", device])
+    rows = []
+    for scene, frames in scenes.items():
+        rows += hp.preprocess_scene_frames(frames, os.path.join(out, "train"), scene, device=device, progress=False)
+    csv_path = os.path.join(out, "processed", "train", "filename_meta_train.csv")
+    os.makedirs(os.path.dirname(csv_path), exist_ok=True)
+    preprocess_hypersim.write_csv(csv_path, rows)
+    return csv_path
+
+
+def sync_ms(fn, reps: int) -> float:
+    """Median host ms of `reps` calls, synchronised on both sides, after one warm-up call."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def phase_hypersim(work: str, rng, with_h5py: bool) -> str:
+    """Phase 17b: a synthetic raw Hypersim tree through `cli.preprocess_hypersim
+    --device cuda`; one scene's PNGs and CSV rows held against `--device cpu`;
+    ms a frame. Returns the processed tree's root."""
+    from diffusion_e2e_ft_tpu_torch.data import image_io
+    from diffusion_e2e_ft_tpu_torch.tools import hypersim_preprocess as hp
+
+    raw, out = os.path.join(work, "hypersim_raw"), os.path.join(work, "hypersim")
+    t0 = time.perf_counter()
+    scenes = write_hypersim_raw(raw, out, rng, with_h5py)
+    frames = sum(len(f) for f in scenes.values())
+    print(f"[data] synthetic Hypersim: {frames} frames {HYPERSIM_RAW_HW[0]}x{HYPERSIM_RAW_HW[1]} in "
+          f"{len(scenes)} scenes ({'HDF5' if with_h5py else 'arrays'}) written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    csv_path = run_preprocess(raw, out, "cuda", scenes, with_h5py)
+    cli_ms = (time.perf_counter() - t0) * 1e3 / frames
+    first = sorted(scenes)[0]
+    cpu_raw, cpu_out = os.path.join(work, "hypersim_raw_cpu"), os.path.join(work, "hypersim_cpu")
+    os.makedirs(cpu_raw)
+    os.symlink(os.path.join(raw, first), os.path.join(cpu_raw, first))
+    t0 = time.perf_counter()
+    cpu_csv = run_preprocess(cpu_raw, cpu_out, "cpu", {first: scenes[first]}, with_h5py)
+    cpu_cli_ms = (time.perf_counter() - t0) * 1e3 / len(scenes[first])
+    with open(csv_path) as f:
+        lines = f.read().splitlines()
+    with open(cpu_csv) as f:
+        cpu_lines = f.read().splitlines()
+    check(len(lines) == frames + 1 and lines[0] == ",".join(hp.CSV_COLUMNS), f"Hypersim CSV: {lines[:2]}")
+    check(cpu_lines == [lines[0]] + [x for x in lines[1:] if f",{first},cam_00," in x],
+          f"Hypersim CSV rows, cuda vs cpu: {lines[:3]} vs {cpu_lines[:3]}")
+    worst = {"rgb": 0, "depth": 0}
+    for frame, *_ in scenes[first]:
+        for kind in worst:
+            rel = os.path.join("train", first, kind, f"frame.{frame}.png")
+            got, want = (image_io.read_image(os.path.join(root, rel)).astype(np.int64) for root in (out, cpu_out))
+            check(got.shape == want.shape == HYPERSIM_RAW_HW + ((3,) if kind == "rgb" else ()), f"{rel}: {got.shape}")
+            worst[kind] = max(worst[kind], int(np.abs(got - want).max()))
+    check(worst["rgb"] <= HYPERSIM_RGB_LEVELS and worst["depth"] <= HYPERSIM_DEPTH_MM,
+          f"Hypersim PNGs, cuda vs cpu: {worst}")
+    _, rgb, distance, entity = scenes[first][0]
+    compute = {dev: sync_ms(lambda: hp.preprocess_frame(rgb, distance, entity, dev), 5 if dev == "cuda" else 2)
+               for dev in ("cuda", "cpu")}
+    print(f"[data] cli.preprocess_hypersim {frames} frames: {cli_ms:.1f} ms a frame on cuda (read, compute, two "
+          f"PNG writes), {cpu_cli_ms:.1f} on cpu; preprocess_frame alone (host arrays in and out) "
+          f"{compute['cuda']:.2f} ms on cuda, {compute['cpu']:.2f} on cpu; cuda vs cpu: CSV rows equal, max|d| rgb "
+          f"{worst['rgb']} levels (bound {HYPERSIM_RGB_LEVELS}), depth {worst['depth']} mm (bound "
+          f"{HYPERSIM_DEPTH_MM})", flush=True)
+    return out
+
+
+def vkitti_depth(index: int) -> np.ndarray:
+    """One synthetic VKITTI2 depth frame, 16-bit cm: sky at 65535 above the
+    horizon, a ground plane below it, a slanted wall and a fronto-parallel box
+    in front (depth steps at their edges)."""
+    from diffusion_e2e_ft_tpu_torch.tools.depth_to_normal import VKITTI_INTRINSICS
+
+    h, w = KITTI_RAW_HW
+    fx, fy, cx, cy = VKITTI_INTRINSICS
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    depth = np.where(v > cy + 4, fy * 160.0 / np.maximum(v - cy, 1.0), 65535.0)
+    wall = (u > 950) & (v < 290)
+    depth[wall] = 800.0 + 9.0 * (w - u[wall])
+    depth[190:300, 300 + 120 * index : 520 + 120 * index] = 1200.0 + 40 * index
+    return np.clip(np.round(depth), 1, 65535).astype(np.uint16)
+
+
+def phase_vkitti(work: str, rng) -> str:
+    """Phase 17c: a synthetic VKITTI2 tree (JPEG rgb, 16-bit cm depth) through
+    `cli.gen_vkitti_normals --device cuda`; the normals held against the CPU's
+    in float64 and the PNGs within 1 LSB; ms a frame. Returns the tree's root."""
+    from PIL import Image
+
+    from diffusion_e2e_ft_tpu_torch.cli import gen_vkitti_normals
+    from diffusion_e2e_ft_tpu_torch.data import image_io
+    from diffusion_e2e_ft_tpu_torch.tools import depth_to_normal as d2n
+
+    root = os.path.join(work, "vkitti")
+    leaf = os.path.join("Scene01", "morning", "frames")
+    rgb_dir = os.path.join(root, "vkitti_2.0.3_rgb", leaf, "rgb", "Camera_0")
+    depth_dir = os.path.join(root, "vkitti_2.0.3_depth", leaf, "depth", "Camera_0")
+    for d in (rgb_dir, depth_dir):
+        os.makedirs(d)
+    for i in range(VKITTI_FRAMES):
+        Image.fromarray(rng.integers(0, 256, (*KITTI_RAW_HW, 3), dtype=np.uint8)).save(
+            os.path.join(rgb_dir, f"rgb_{i:05d}.jpg"), quality=90)
+        image_io.write_png(os.path.join(depth_dir, f"depth_{i:05d}.png"), vkitti_depth(i))
+    t0 = time.perf_counter()
+    n = quiet(gen_vkitti_normals.main, ["--vkitti_root", root, "--device", "cuda"])
+    cli_ms = (time.perf_counter() - t0) * 1e3 / VKITTI_FRAMES
+    check(n == VKITTI_FRAMES, f"gen_vkitti_normals: {n} frames")
+    worst, lsb, firsts = 0.0, 0, 0
+    args = (*d2n.VKITTI_INTRINSICS, "v3")
+    for depth_path, normal_path in d2n.vkitti_frames(root):
+        depth = image_io.read_image(depth_path)
+        got, want = (d2n.depth_to_normal64(depth, *args, device=dev) for dev in ("cuda", "cpu"))
+        check(bool(torch.isfinite(got).all()) and got.shape == (*KITTI_RAW_HW, 3), f"{depth_path}: {got.shape}")
+        worst = max(worst, float((got.cpu() - want).abs().max()))
+        z = torch.from_numpy(depth.astype(np.float64))
+        choice = d2n.mrf_choice(z.cuda()).cpu()
+        check(torch.equal(choice, d2n.mrf_choice(z)), f"{depth_path}: the MRF choice differs, cuda vs cpu")
+        firsts += int((choice == 0).sum())
+        written = image_io.read_image(normal_path).astype(np.int64)
+        lsb = max(lsb, int(np.abs(written - d2n.normal_to_uint16(want.float())).max()))
+    check(worst <= D2NT_CPU_BOUND, f"D2NT float64, cuda vs cpu max|d| {worst} > {D2NT_CPU_BOUND}")
+    check(lsb <= 1, f"VKITTI normal PNGs, cuda vs the cpu's normals: {lsb} LSB")
+    depth = image_io.read_image(os.path.join(depth_dir, "depth_00000.png"))
+    compute = {dev: sync_ms(lambda: d2n.depth_to_normal(depth, *args, device=dev), 10 if dev == "cuda" else 2)
+               for dev in ("cuda", "cpu")}
+    print(f"[data] cli.gen_vkitti_normals {VKITTI_FRAMES} frames {KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]}: {cli_ms:.1f} ms "
+          f"a frame on cuda (depth PNG read, D2NT v3, 16-bit PNG write); depth_to_normal alone (host uint16 in, "
+          f"float32 on the device out) {compute['cuda']:.2f} ms on cuda, {compute['cpu']:.2f} on cpu; cuda vs cpu "
+          f"float64 max|d| {worst:.3e} (bound {D2NT_CPU_BOUND}), MRF choice equal on every pixel ({firsts} took the "
+          f"first candidate), PNGs within {lsb} LSB", flush=True)
+    return root
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """(kernel name, shape of the tensor it was launched on) of every launch
+    made inside the block, in order."""
+    from diffusion_e2e_ft_tpu_torch.kernels import _build
+
+    seen, launch = [], _build.launch
+
+    def record(counts, name, t, *args, **kw):
+        launch(counts, name, t, *args, **kw)
+        seen.append((name, tuple(t.shape)))
+
+    _build.launch = record
+    try:
+        yield seen
+    finally:
+        _build.launch = launch
+
+
+@contextlib.contextmanager
+def instrumented_training(steps: list, reads: dict, waits: list):
+    """Inside the block, every `E2ETrainer.train_step` appends {"hw", "ms",
+    "loss", "launches", "shapes"} to `steps` (host clock, synchronised), each
+    reader's `__getitem__` its host ms to `reads[reader]`, and each batch the
+    step loop takes from `Prefetcher` the host ms it waited to `waits`."""
+    from diffusion_e2e_ft_tpu_torch.data import mixer, train_datasets
+    from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer
+
+    saved = [(E2ETrainer, "train_step"), (mixer.Prefetcher, "__iter__"), (train_datasets.Hypersim, "__getitem__"),
+             (train_datasets.VirtualKITTI2, "__getitem__")]
+    originals = [getattr(owner, name) for owner, name in saved]
+    train_step, prefetch, hypersim_getitem, vkitti_getitem = originals
+    seen: list = []
+
+    def timed_step(self, state, batch, generator=None):
+        first = len(seen)
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(self, state, batch, generator)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        steps.append({"hw": tuple(batch["rgb"].shape[1:3]), "ms": ms, "loss": loss,
+                      "launches": {k: after[k] - before[k] for k in after}, "shapes": set(seen[first:])})
+        return state, metrics
+
+    def timed_iter(self):
+        it = prefetch(self)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            if item is None:
+                return
+            waits.append((time.perf_counter() - t0) * 1e3)
+            yield item
+
+    def timed(original, label):
+        def getitem(self, idx):
+            t0 = time.perf_counter()
+            sample = original(self, idx)
+            reads.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+            return sample
+        return getitem
+
+    E2ETrainer.train_step, mixer.Prefetcher.__iter__ = timed_step, timed_iter
+    train_datasets.Hypersim.__getitem__ = timed(hypersim_getitem, "Hypersim")
+    train_datasets.VirtualKITTI2.__getitem__ = timed(vkitti_getitem, "VirtualKITTI2")
+    try:
+        with recorded_launches() as recorded:
+            seen = recorded
+            yield
+    finally:
+        for (owner, name), original in zip(saved, originals):
+            setattr(owner, name, original)
+
+
+def held_shapes() -> dict:
+    """{kernel: the shapes phases 3, 3c, 4 and 4b hold it at against its plain
+    version}: attention (B, L, N, D); GroupNorm statistics and GN -> conv (B, C, H, W)."""
+    gn = {case[:4] for case in GN_CASES}
+    bwd = set(BWD_CASES)
+    return {"flash_attention_fwd": set(ATTN_CASES) | set(eval_attention_cases()) | set(slice_c_attention_cases()),
+            "flash_attention_fwd_lse": bwd, "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd,
+            "gn_channel_stats": gn, "gn_silu_conv3x3": gn, "gn_silu_conv3x3_v2": gn}
+
+
+def phase_train_from_trees(ckpt: str, hypersim: str, vkitti: str) -> dict:
+    """Phase 17d: the real `cli.train` on the trees 17b and 17c wrote, bf16,
+    UNet checkpointing, bs 2, two 9:1 epochs (E2_STEPS steps, two of them
+    VKITTI2 batches at 352x1216), for normals and for depth, on phase 6's HF
+    directory. Returns every kernel's launches of the two runs."""
+    from diffusion_e2e_ft_tpu_torch.cli import train as train_cli
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    held = held_shapes()
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as work:
+        for modality in ("normals", "depth"):
+            out = os.path.join(work, modality)
+            steps, reads, waits = [], {}, []
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()  # the path's run starts here
+            t0 = time.perf_counter()
+            with instrumented_training(steps, reads, waits):
+                train_cli.main([
+                    "--pretrained_model_name_or_path", ckpt, "--modality", modality, "--output_dir", out,
+                    "--hypersim_root", hypersim, "--vkitti_root", vkitti, "--train_batch_size", "2",
+                    "--gradient_accumulation_steps", "1", "--max_train_steps", str(E2_STEPS),
+                    "--checkpointing_steps", str(10 * E2_STEPS), "--gradient_checkpointing", "--half_precision",
+                    "--seed", "0", "--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            launches = read_launches()  # ... and ends here
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            by_hw: dict = {}
+            for s in steps:
+                by_hw.setdefault(s["hw"], []).append(s)
+            check(len(steps) == E2_STEPS and set(by_hw) == {NYU_HW, VKITTI_HW},
+                  f"{modality}: steps at {[s['hw'] for s in steps]}")
+            for s in steps:
+                check(bool(np.isfinite(s["loss"])), f"{modality} step at {s['hw']}: loss {s['loss']}")
+                check(s["launches"] == step_launches(UNET_SITES_480x640),
+                      f"{modality} step at {s['hw']}: launches {s['launches']}, expected step_launches(15)")
+                for name, shape in s["shapes"]:
+                    check(shape[:4] in held[name], f"{modality} step at {s['hw']}: {name} at {shape}, a shape "
+                          "no phase holds against the plain version")
+            rows = []
+            for hw, group in sorted(by_hw.items()):
+                kinds = sorted({(n.replace("flash_attention_", "").replace("gn_", ""), sh)
+                                for s in group for n, sh in s["shapes"]})
+                rows.append(f"{hw[0]}x{hw[1]}: {len(group)} steps, ms {[round(s['ms'], 1) for s in group]}, losses "
+                            f"{[round(s['loss'], 5) for s in group]}, kernel shapes {kinds}")
+            read_ms = {k: f"median {statistics.median(v):.1f}, max {max(v):.1f} over {len(v)}" for k, v in reads.items()}
+            print(f"[train-e2] cli.train {modality}, bf16, bs 2, {E2_STEPS} steps in {seconds:.1f} s with the "
+                  f"checkpoint's load and the export; launches a step step_launches(15) at both shapes; "
+                  + "; ".join(rows) + f"; peak device memory {peak:.3f} GiB; reader host ms a sample {read_ms}; "
+                  f"the step loop waited on Prefetcher {[round(x, 1) for x in waits]} ms (sum {sum(waits):.1f})",
+                  flush=True)
+            pipe = MarigoldPipeline.from_hf_dir(os.path.join(out, "export"), device="cuda", dtype=torch.bfloat16)
+            check(pipe.unet.config.in_channels == 8, f"{modality} export: conv_in {pipe.unet.config.in_channels}")
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        print("[train-e2] both exports load with MarigoldPipeline.from_hf_dir", flush=True)
+    return total
+
+
+def phase_data_path(ckpt: str) -> dict:
+    """Phase 17 (a-d), slice E2's main path. Returns every kernel's launches of 17d."""
+    rng = np.random.default_rng(17)
+    with_h5py = phase_data_host()
+    with tempfile.TemporaryDirectory() as work:
+        hypersim = phase_hypersim(work, rng, with_h5py)
+        vkitti = phase_vkitti(work, rng)
+        return phase_train_from_trees(ckpt, hypersim, vkitti)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch; this run needs one GPU")
@@ -2303,6 +2744,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         with recorded_shapes(fa) as eval_shapes:
             launches["flash_attention_fwd"] += phase_eval_path(fa, ckpt)  # slice E1's main path
+        gc.collect()
+        torch.cuda.empty_cache()
+        data_path = phase_data_path(ckpt)  # slice E2's main path
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2341,7 +2785,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     geo_train = phase_geowizard_train(*phase_geowizard_train_parity())  # slice B2's main path
-    for name, n in geo_train.items():
+    for name, n in [*geo_train.items(), *data_path.items()]:
         launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
 

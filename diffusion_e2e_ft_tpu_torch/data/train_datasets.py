@@ -1,8 +1,13 @@
 """Training datasets: Hypersim and VirtualKITTI2, with the shared sample transform.
 
-The port's own copy of `diffusion_e2e_ft_tpu/data/train_datasets.py` (numpy,
-with PIL, pandas and cv2 imported where a reader needs them), so the PyTorch
-package imports nothing of the JAX package.
+The port's own copy of `diffusion_e2e_ft_tpu/data/train_datasets.py` (numpy),
+so the PyTorch package imports nothing of the JAX package. It reads what the
+JAX readers read, with neither pandas nor cv2: the Hypersim CSV through the
+`csv` module (cells typed by column as pandas' `read_csv` types them), the
+16-bit PNGs (depth; VKITTI's normals) through `data/image_io.py`. PIL
+(imported where a reader needs it) decodes the JPEGs and 8-bit PNGs and
+resizes, as in the JAX readers. PIL opens a 16-bit RGB PNG as 8-bit RGB
+holding each channel's high byte; the port's VKITTI reader takes that byte.
 
 Capability parity: the reference's `training/dataloaders/load.py:67-376` — Hypersim
 (CSV-driven pairs, mm->m, camera-orientation normal fixing via inverse-K reprojection,
@@ -17,11 +22,16 @@ is reproducible from a seed (the train step only ever sees fixed-shape arrays).
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import math
 import os
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from diffusion_e2e_ft_tpu_torch.data import image_io
 
 HYPERSIM_INTRINSICS = (886.81, 886.81)  # fx, fy; principal point at W/2, H/2
 HYPERSIM_HW = (480, 640)
@@ -29,6 +39,42 @@ VKITTI_SCENES = ("Scene01", "Scene02", "Scene06", "Scene18", "Scene20")
 VKITTI_WEATHER = ("morning", "fog", "rain", "sunset", "overcast")
 VKITTI_CAMERAS = ("Camera_0", "Camera_1")
 KB_CROP_HW = (352, 1216)
+
+
+_INT = re.compile(r"[-+]?[0-9]+")
+_BOOLS = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": False, "false": False}
+
+
+def _typed_column(cells: List[str]) -> list:
+    """One CSV column's cells typed as pandas' `read_csv` types a column: all
+    booleans (True / TRUE / true, False / ...) -> bool, all integers -> int
+    (float where a cell is empty), else strings; an empty cell is NaN."""
+    filled = [c for c in cells if c != ""]
+    if filled and all(c in _BOOLS for c in filled):
+        return [_BOOLS[c] if c else math.nan for c in cells]
+    if filled and all(_INT.fullmatch(c) for c in filled):
+        kind = int if len(filled) == len(cells) else float
+        return [kind(c) if c else math.nan for c in cells]
+    return [c if c else math.nan for c in cells]
+
+
+def read_csv_rows(path: str) -> List[Dict[str, object]]:
+    """The rows of a CSV with a header line, as dicts of pandas-typed cells."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader, [])
+        records = [r for r in reader if r]
+    columns = {name: _typed_column([r[i] if i < len(r) else "" for r in records]) for i, name in enumerate(header)}
+    return [{name: columns[name][j] for name in header} for j in range(len(records))]
+
+
+def read_rgb8(path: str) -> np.ndarray:
+    """An RGB PNG as uint8 [H, W, 3], as PIL's `Image.open(path).convert("RGB")`
+    gives it for an 8- or 16-bit RGB file: a 16-bit channel's high byte."""
+    rgb = image_io.read_image(path)
+    if rgb.ndim != 3 or rgb.shape[-1] != 3:
+        raise ValueError(f"{path}: expected an RGB PNG, got shape {rgb.shape}")
+    return (rgb >> 8).astype(np.uint8) if rgb.dtype == np.uint16 else rgb
 
 
 def _resize_pil(arr: np.ndarray, hw: Tuple[int, int], nearest: bool = False) -> np.ndarray:
@@ -138,8 +184,6 @@ class Hypersim:
         align_cam_normal: bool = True,
         seed: int = 0,
     ):
-        import pandas as pd
-
         self.root_dir = root_dir
         self.near_plane = near_plane
         self.far_plane = far_plane
@@ -148,9 +192,8 @@ class Hypersim:
         self.rng = np.random.default_rng(seed)
 
         split_csv = split_csv or os.path.join(root_dir, "processed", "train", "filename_meta_train.csv")
-        df = pd.read_csv(split_csv)
         self.pairs: List[HypersimSample] = []
-        for _, row in df.iterrows():
+        for row in read_csv_rows(split_csv):
             if not (row.get("included_in_public_release", True) and row.get("split_partition_name", "train") == "train"):
                 continue
             rgb = os.path.join(root_dir, "train", row["rgb_path"])
@@ -174,7 +217,7 @@ class Hypersim:
 
         p = self.pairs[idx]
         rgb01 = np.asarray(Image.open(p.rgb_path).convert("RGB"), np.float32) / 255.0
-        depth = np.asarray(Image.open(p.depth_path), np.float32) / 1000.0  # mm -> m
+        depth = image_io.read_image(p.depth_path).astype(np.float32) / 1000.0  # mm -> m
         normal01 = np.asarray(Image.open(p.normal_path).convert("RGB"), np.float32) / 255.0
         normal = normal01 * 2.0 - 1.0
 
@@ -244,16 +287,14 @@ class VirtualKITTI2:
         return len(self.pairs)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        import cv2
         from PIL import Image
 
         rgb_path, depth_path, normal_path = self.pairs[idx]
         rgb01 = np.asarray(Image.open(rgb_path).convert("RGB"), np.float32) / 255.0
-        depth = cv2.imread(depth_path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
-        depth = depth.astype(np.float32) / 100.0  # cm -> m
+        depth = image_io.read_image(depth_path).astype(np.float32) / 100.0  # cm -> m
         normal = None
         if os.path.exists(normal_path):
-            normal01 = np.asarray(Image.open(normal_path).convert("RGB"), np.float32) / 255.0
+            normal01 = read_rgb8(normal_path).astype(np.float32) / 255.0
             normal = normal01 * 2.0 - 1.0
 
         if self.rng.random() < self.flip_p:

@@ -69,9 +69,10 @@ TINY_VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num
 TINY_TEXT = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64)
 
 
-def write_tiny_checkpoint(path) -> str:
+def write_tiny_checkpoint(path, **unet) -> str:
     """A tiny Marigold HF pipeline directory written by the JAX package: the
-    tiny UNet, a 4-level VAE and a 2-layer text encoder, seeded numpy weights."""
+    tiny UNet (`unet` overriding its fields), a 4-level VAE and a 2-layer text
+    encoder, seeded numpy weights."""
     import jax.numpy as jnp
 
     from diffusion_e2e_ft_tpu.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
@@ -79,7 +80,7 @@ def write_tiny_checkpoint(path) -> str:
     from diffusion_e2e_ft_tpu.ops import scheduler as jsched
     from diffusion_e2e_ft_tpu.pipelines import loading
 
-    ucfg, vcfg = UNetConfig.tiny(), VAEConfig(**TINY_VAE)
+    ucfg, vcfg = UNetConfig.tiny(**unet), VAEConfig(**TINY_VAE)
     up = random_flax_params(UNet2DCondition(ucfg), 0, jnp.ones((1, 8, 8, 8)), jnp.asarray(999), jnp.ones((1, 2, 32)))
     vp = random_flax_params(AutoencoderKL(vcfg), 1, jnp.ones((1, 64, 64, 3)))
     loading.save_pipeline_dir(str(path), ucfg, up, vcfg, vp, jsched.SchedulerConfig())

@@ -64,6 +64,16 @@ def test_port_modules_listed():
         "diffusion_e2e_ft_tpu_torch.cli.eval_normals",
         "diffusion_e2e_ft_tpu_torch.cli.run_marigold",
         "diffusion_e2e_ft_tpu_torch.cli.run_geowizard",
+        "diffusion_e2e_ft_tpu_torch.utils.geometry",
+        "diffusion_e2e_ft_tpu_torch.ops.depth_transform",
+        "diffusion_e2e_ft_tpu_torch.training.normal_losses",
+        "diffusion_e2e_ft_tpu_torch.data.augmentations",
+        "diffusion_e2e_ft_tpu_torch.tools",
+        "diffusion_e2e_ft_tpu_torch.tools.depth_to_normal",
+        "diffusion_e2e_ft_tpu_torch.tools.hypersim_preprocess",
+        "diffusion_e2e_ft_tpu_torch.tools.make_splits",
+        "diffusion_e2e_ft_tpu_torch.cli.gen_vkitti_normals",
+        "diffusion_e2e_ft_tpu_torch.cli.preprocess_hypersim",
     ):
         assert expected in mods
 
