@@ -154,7 +154,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every kernel launched only at a shape phases 3, 3c, 4 and 4b hold against
    the plain version, ms/step at each shape, peak memory, each reader's host
    ms a sample, the step loop's waits on `Prefetcher`, and the export loading
-   with `MarigoldPipeline.from_hf_dir`.
+   with `MarigoldPipeline.from_hf_dir`;
+18. slices F and D3, in three parts placed where their weights are at hand:
+   (b) after phase 15 (a), on its HF directory, and after phase 16's
+   GeoWizard frames, on phase 11's pipeline: `with_mesh` on [cuda:0,
+   cuda:0], a seeded 10-member pyramid ensemble at 480x640 in bf16 (4 DDIM
+   steps, two members a call, the second position given a replica of its
+   own, as a second card would hold) against no mesh (one a call): the
+   members to the bit, then the outputs; (c) after phase 8, on its
+   weights: the remat policies' gradients ("dots", "dots_all") against the
+   no-checkpoint gradients, then one SD2 step at 480x640 bs 2 in bf16 for each
+   D3 option (save nothing, "dots", "dots_all", `vae_decode_checkpoint`, a
+   bf16 Adam moment), each from the same weights, with ms/step, peak memory,
+   launches and losses against the default's; the sub-pixel decoder against
+   the resize one in fp32 at 768x768, and each bf16 decode's ms and peak;
+   (a) last, slice F's main path, in processes of its own after this one
+   has freed its models (phases 8 and 13 leave their weights in a temporary
+   directory): a reference process runs the fp32 SD2 step (pyramid noise,
+   rows with unequal valid counts) on the whole 480x640 global batch of 2,
+   then a 1-rank NCCL group's bf16 steps; two ranks on cuda:0 over gloo
+   (NCCL refuses two ranks on one card) run the same fp32 step on a row each,
+   whose loss, grad norm and every parameter after the step must equal the
+   reference's within `DP_BOUNDS`, then bf16 SD2 and GeoWizard joint steps on
+   their rows, with ms/step, peak memory a rank, `step_launches(15)` a step
+   and every kernel shape one that phases 3, 3c, 4 and 4b hold (phases 4 and
+   4b include the shapes of one row a rank).
 
 Phase 3c runs the forward kernel at every shape phase 15's requests send
 it, worked out from their sizes: the baseline's chunk of 10 at 480x640
@@ -193,6 +217,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -265,7 +290,10 @@ BWD_TRAIN_CASES = [
     (2, 418, 20, 64),  # level 2, ragged: 6 * 64 + 34, 13 * 32 + 2
     (2, 6688, 1, 512),  # VAE decoder mid (differentiated)
 ]
-BWD_CASES = BWD_TRAIN_CASES + [
+# the same sites at one row a rank: phase 18's two data-parallel ranks of a 480x640 global batch of 2
+BWD_DP_CASES = [(1, 4800, 5, 64), (1, 1200, 10, 64), (1, 300, 20, 64), (1, 4800, 1, 512),  # SD2
+                (1, 9600, 8, 40), (1, 2400, 8, 80), (1, 600, 8, 160)]  # GeoWizard's joint attention (its decode: 2B)
+BWD_CASES = BWD_TRAIN_CASES + BWD_DP_CASES + [
     (2, 300, 3, 64),
     (3, 300, 1, 512),  # ragged: 4 * 64 + 44, 9 * 32 + 12, 18 * 16 + 12
     (2, 300, 8, 40),  # ragged: 4 * 64 + 44, 9 * 32 + 12
@@ -406,7 +434,9 @@ GN_VKITTI_LAUNCHES = pair_launches((2, VKITTI_ENCODER_PAIRS), (2, VKITTI_DECODER
 # (B, C, H, W, Cout): every GN -> conv shape of those steps (timed in bf16), then ragged ones
 GN_TRAIN_SHAPES = list(dict.fromkeys([*GN_TRAIN_LAUNCHES, *GN_JOINT_LAUNCHES, *GN_JOINT_DIFFUSION_LAUNCHES,
                                       *GN_VKITTI_LAUNCHES]))
-GN_CASES = GN_TRAIN_SHAPES + [
+# ... and at one row a rank (phase 18: SD2's encoder and decoder, GeoWizard's encoder; its decoder at 2B = 2)
+GN_DP_LAUNCHES = pair_launches((1, ENCODER_PAIRS), (1, DECODER_PAIRS))
+GN_CASES = GN_TRAIN_SHAPES + [s for s in GN_DP_LAUNCHES if s not in GN_TRAIN_SHAPES] + [
     (1, 128, 37, 53, 128),  # ragged: 1961 pixels = 15 * 128 + 41; odd rows for the 16-byte vectors
     (2, 256, 1, 77, 128),  # H = 1: every tap but the middle row is padding
     (3, 128, 9, 9, 96),  # Cout ragged for the 64-wide channel tiles
@@ -2700,15 +2730,429 @@ def phase_data_path(ckpt: str) -> dict:
         return phase_train_from_trees(ckpt, hypersim, vkitti)
 
 
+# Slice F + D3 (phase 18). (a) Data parallelism on the one card: NCCL refuses two ranks on one GPU, so
+# the two ranks of a 480x640 global batch of 2 meet over gloo (which all-reduces CUDA tensors through the
+# host); a 1-rank NCCL group runs the NCCL init and all-reduce on the card. 2 ranks vs 1 process, fp32,
+# TF32 off, one step, relative: the loss, the grad norm (phase 7's bound: cuDNN picks its conv algorithms
+# by batch size, and the SSI solve of random-weight predictions amplifies their rounding) and every
+# parameter after the step against the largest update. Adam's first step is lr g / (|g| + eps): with the
+# random weights' gradients of ~1e-6 and eps 1e-6 it is smooth in g (no sign flips from float noise) and
+# ~lr, far above the parameters' fp32 rounding (at lr 3e-5, eps 1e-3 it was 3e-7, at their rounding)
+DP_WORLD = 2
+DP_BOUNDS = {"loss": 1e-5, "grad_norm": TRAIN_PARITY_BOUNDS["grad_norm"], "update": 1e-2}
+DP_PARITY = dict(gradient_checkpointing=True, gradient_accumulation_steps=1, lr_warmup_steps=0,
+                 noise_type="pyramid", learning_rate=1e-3, adam_epsilon=1e-6, seed=18)
+DP_STEPS = 3  # bf16 steps of each data-parallel run (the first is the warm-up)
+# (b) with_mesh's ensembles: one member a call, no mesh, against two a call on [cuda:0, cuda:0] (one on
+# a replica of its own): every kernel-1 shape is an eval frame's (phase 3c)
+MESH_HW, MESH_MEMBERS, MESH_STEPS = (480, 640), 10, 4
+D3_OPTIONS = [  # (c) the SD2 step's options at 480x640 bs 2, bf16, the default (save nothing) first and last
+    ("save nothing", {}), ("remat_policy=dots", dict(remat_policy="dots")),
+    ("remat_policy=dots_all", dict(remat_policy="dots_all")), ("vae_decode_checkpoint", dict(vae_decode_checkpoint=True)),
+    ("adam_mu_dtype=bfloat16", dict(adam_mu_dtype="bfloat16")), ("save nothing, again", {}),
+]
+D3_STEPS = 4  # steps of each option (the first is the warm-up)
+D3_LOSS_BOUND = 1e-2  # second-step loss vs the default's, relative: a bf16 first moment moves the first update
+SUBPIXEL_HW = (768, 768)
+SUBPIXEL_BOUND = 1e-5  # fp32 decode, sub-pixel vs resize, max|d| / max|resize|: the same sums in another order
+
+
+def dp_batch() -> dict:
+    """The global batch of phase 18a: two 480x640 rows whose valid counts
+    differ (rank 0's row loses a block, rank 1's keeps one), so that a mean
+    of the ranks' means would not be the global mean."""
+    rng = np.random.default_rng(18)
+    batch = synthetic_batch(rng, 2, 480, 640, "depth", invalid=0.0)
+    batch["val_mask"][0, 64:192, 96:288] = False
+    batch["val_mask"][1] = False
+    batch["val_mask"][1, 120:360, 160:480] = True
+    return batch
+
+
+def dp_sd2_trainer(weights: dict, compute_dtype=None, **config):
+    """An E2ETrainer on cuda:0 over phase 8's saved SD2 weights."""
+    from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition
+    from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
+
+    with torch.device("meta"):
+        unet, vae = UNet2DCondition(weights["unet_config"]), AutoencoderKL(weights["vae_config"])
+    unet.load_state_dict(weights["unet"], assign=True)
+    vae.load_state_dict(weights["vae"], assign=True)
+    return E2ETrainer(TrainConfig(**config), unet.cuda(), vae, weights["empty"], compute_dtype=compute_dtype)
+
+
+def dp_geo_trainer(weights: dict):
+    """A bf16 GeoWizardTrainer (the default TrainConfig) on cuda:0 over phase 13's saved weights."""
+    from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition
+    from diffusion_e2e_ft_tpu_torch.models import clip
+    from diffusion_e2e_ft_tpu_torch.training import GeoWizardTrainer, TrainConfig
+
+    with torch.device("meta"):
+        modules = (UNet2DCondition(weights["unet_config"]), AutoencoderKL(weights["vae_config"]),
+                   clip.CLIPVisionModelWithProjection(weights["encoder_config"]))
+    for module, key in zip(modules, ("unet", "vae", "encoder")):
+        module.load_state_dict({k: v.float() for k, v in weights[key].items()}, assign=True)
+    unet, vae, encoder = modules
+    config = TrainConfig(gradient_checkpointing=True, gradient_accumulation_steps=1, lr_warmup_steps=0)
+    return GeoWizardTrainer(config, unet.cuda(), vae, encoder, compute_dtype=torch.bfloat16)
+
+
+def dp_bf16_steps(trainer, batches: list, dp, label: str) -> dict:
+    """DP_STEPS bf16 steps on this rank's rows of `batches` (the group `dp`,
+    None for no group), from reset launch counts: ms a step (host clock),
+    peak memory, losses, launches and the kernel shapes of each step."""
+    from diffusion_e2e_ft_tpu_torch.parallel import shard_train_batch
+
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    reduce_ms: list = []
+    if dp is not None:
+        trainer.place_frozen(dp)
+        all_reduce = dp.all_reduce_
+
+        def timed_reduce(tensors):  # the gradient all-reduce's share of the step, host clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(tensors)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+        dp.all_reduce_ = timed_reduce
+    generator = torch.Generator(device="cuda").manual_seed(DP_PARITY["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's run starts here
+    try:
+        with recorded_launches() as seen:
+            state, ms, per_step, losses = timed_steps(
+                trainer, trainer.init_state(), [shard_train_batch(b, rank, world) for b in batches], generator)
+    finally:
+        if dp is not None:
+            dp.all_reduce_ = all_reduce
+    launches = read_launches()  # ... and ends here
+    shapes = sorted({(name, shape[:4]) for name, shape in seen})
+    out = {"ms": ms, "median_ms": statistics.median(ms[1:]), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses, "per_step": per_step, "launches": launches, "shapes": [list(x) for x in shapes],
+           "reduce_ms": statistics.median(reduce_ms[1:]) if reduce_ms else 0.0}
+    print(f"[dp] {label} rank {rank} of {world}: {len(ms)} steps of {len(batches[0]['rgb']) // world} rows, ms/step "
+          f"{[round(x, 1) for x in ms]} (median after the first {out['median_ms']:.1f}, of it the gradient "
+          f"all-reduce {out['reduce_ms']:.1f}), peak {out['peak_gib']:.3f} GiB, losses {[round(x, 6) for x in losses]}, "
+          f"launches a step {per_step[-1]}", flush=True)
+    return out
+
+
+def dp_parity_step(trainer, dp) -> tuple:
+    """One fp32 step on the global batch (dp None) or this rank's rows of
+    it: (the state after it, its loss and grad norm)."""
+    from diffusion_e2e_ft_tpu_torch.parallel import shard_train_batch
+
+    batch = dp_batch()
+    if dp is not None:
+        trainer.place_frozen(dp)
+        batch = shard_train_batch(batch, dp.rank, dp.world)
+    generator = torch.Generator(device="cuda").manual_seed(DP_PARITY["seed"])
+    state, metrics = trainer.train_step(trainer.init_state(), batch, generator)
+    return state, {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+
+
+def dp_setup() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dp_reference(_: int, work: str) -> None:
+    """Phase 18a's first process: the fp32 step on the whole global batch in
+    one process (its parameters written for the ranks to compare), then a
+    1-rank NCCL group's bf16 steps on the card."""
+    from diffusion_e2e_ft_tpu_torch.parallel import init_data_parallel
+
+    dp_setup()
+    weights = torch.load(os.path.join(work, "sd2.pt"), weights_only=False, mmap=True)
+    trainer = dp_sd2_trainer(weights, **DP_PARITY)
+    state, out = dp_parity_step(trainer, None)
+    torch.save({n: p.detach().cpu() for n, p in state.params.items()}, os.path.join(work, "reference.pt"))
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = init_data_parallel(0, 1, "cuda:0", init_file=os.path.join(work, "nccl-rendezvous"))
+    try:
+        check(dp.backend == "nccl", f"a CUDA rank took {dp.backend}")
+        rng = np.random.default_rng(19)
+        batches = [synthetic_batch(rng, 2, 480, 640, "depth", invalid=0.0) for _ in range(DP_STEPS)]
+        out["nccl"] = dp_bf16_steps(dp_sd2_trainer(weights, torch.bfloat16, **dict(DP_PARITY, noise_type="zeros")),
+                                    batches, dp, "SD2 bf16 NCCL")
+    finally:
+        dp.close()
+    with open(os.path.join(work, "reference.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_rank(rank: int, work: str) -> None:
+    """Phase 18a's ranks on cuda:0 over gloo: the fp32 step on the rank's row
+    against the reference's parameters, then the bf16 SD2 and GeoWizard
+    steps on the rank's rows of global batches of 2."""
+    from diffusion_e2e_ft_tpu_torch.parallel import init_data_parallel
+
+    dp_setup()
+    dp = init_data_parallel(rank, DP_WORLD, "cuda:0", init_file=os.path.join(work, "gloo-rendezvous"), backend="gloo")
+    try:
+        weights = torch.load(os.path.join(work, "sd2.pt"), weights_only=False, mmap=True)
+        trainer = dp_sd2_trainer(weights, **DP_PARITY)
+        state, out = dp_parity_step(trainer, dp)
+        reference = torch.load(os.path.join(work, "reference.pt"), mmap=True)
+        errs = {n: float((p.detach() - reference[n].to(p.device)).abs().max()) for n, p in state.params.items()}
+        update = max(float((reference[n] - weights["unet"][n]).abs().max()) for n in errs)  # the reference's step
+        out["update_err"], out["worst_param"] = max(errs.values()) / update, max(errs, key=errs.get)
+        out["params"], out["largest_update"] = len(errs), update
+        del state, trainer, reference
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(19)  # the NCCL run's batches
+        batches = [synthetic_batch(rng, 2, 480, 640, "depth", invalid=0.0) for _ in range(DP_STEPS)]
+        out["sd2"] = dp_bf16_steps(dp_sd2_trainer(weights, torch.bfloat16, **dict(DP_PARITY, noise_type="zeros")),
+                                   batches, dp, "SD2 bf16 gloo")
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(20)
+        geo_batches = [joint_batch(rng, 2, 480, 640) for _ in range(DP_STEPS)]
+        geo = torch.load(os.path.join(work, "geowizard.pt"), weights_only=False, mmap=True)
+        out["geowizard"] = dp_bf16_steps(dp_geo_trainer(geo), geo_batches, dp, "GeoWizard joint bf16 gloo")
+    finally:
+        dp.close()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_data_parallel(work: str) -> dict:
+    """Phase 18a, slice F's main path, on the weights phases 8 and 13 left in
+    `work`: the reference process, then the two gloo ranks, each spawned
+    after the last has ended (this process holds no model by then). Returns
+    the kernel launches of the ranks' bf16 runs (both ranks, SD2 and
+    GeoWizard) and of the NCCL run."""
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(dp_reference, args=(work,), nprocs=1)
+    t1 = time.perf_counter()
+    torch.multiprocessing.spawn(dp_rank, args=(work,), nprocs=DP_WORLD)
+    t2 = time.perf_counter()
+    ref = json.load(open(os.path.join(work, "reference.json")))
+    ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(DP_WORLD)]
+    counts = [int(m.sum()) for m in dp_batch()["val_mask"]]
+    for r, got in enumerate(ranks):
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+        print(f"[dp] fp32 480x640, valid pixels {counts} a row, pyramid noise: rank {r} of 2 (gloo) loss "
+              f"{got['loss']:.8f} vs one process {ref['loss']:.8f} (rel {rel['loss']:.2e}, bound {DP_BOUNDS['loss']}), "
+              f"grad norm {got['grad_norm']:.6e} vs {ref['grad_norm']:.6e} (rel {rel['grad_norm']:.2e}, bound "
+              f"{DP_BOUNDS['grad_norm']}), every one of {got['params']} parameters after the step max|d| / the "
+              f"largest update ({got['largest_update']:.3e}) {got['update_err']:.2e} ({got['worst_param']}; bound "
+              f"{DP_BOUNDS['update']})", flush=True)
+        for k in ("loss", "grad_norm"):
+            check(rel[k] <= DP_BOUNDS[k], f"rank {r}: {k} {got[k]} vs one process {ref[k]}")
+        check(got["update_err"] <= DP_BOUNDS["update"], f"rank {r}: parameter {got['worst_param']} off by "
+              f"{got['update_err']} of the largest update")
+    check(ranks[0]["loss"] == ranks[1]["loss"] and ranks[0]["grad_norm"] == ranks[1]["grad_norm"],
+          "the ranks' global loss or grad norm differ")
+    held = held_shapes()
+    total: dict = {}
+    runs = [(f"rank {r} {model}", ranks[r][model]) for model in ("sd2", "geowizard") for r in range(DP_WORLD)]
+    for label, run in [*runs, ("nccl", ref["nccl"])]:
+        check(np.isfinite(run["losses"]).all(), f"{label}: losses {run['losses']}")
+        check(all(s == step_launches(UNET_SITES_480x640) for s in run["per_step"]),
+              f"{label}: launches a step {run['per_step']}, expected step_launches(15)")
+        for name, shape in run["shapes"]:
+            check(tuple(shape) in held[name], f"{label}: {name} at {shape}, a shape no phase holds against the "
+                  "plain version")
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
+    for model in ("sd2", "geowizard"):
+        check(ranks[0][model]["losses"] == ranks[1][model]["losses"], f"{model}: the ranks' global losses differ")
+        print(f"[dp] bf16 {model} 2 ranks x 1 row (gloo on one card): median ms/step "
+              f"{[round(r[model]['median_ms'], 1) for r in ranks]} (the all-reduce "
+              f"{[round(r[model]['reduce_ms'], 1) for r in ranks]}), peak GiB a rank "
+              f"{[round(r[model]['peak_gib'], 3) for r in ranks]}, launches a rank a step "
+              f"{ranks[0][model]['per_step'][-1]}", flush=True)
+    print(f"[dp] bf16 sd2 1 rank x 2 rows (NCCL): median ms/step {ref['nccl']['median_ms']:.1f} (the all-reduce "
+          f"{ref['nccl']['reduce_ms']:.1f}), peak "
+          f"{ref['nccl']['peak_gib']:.3f} GiB; the processes took {t1 - t0:.1f} s (reference + NCCL) and "
+          f"{t2 - t1:.1f} s (the gloo ranks)", flush=True)
+    return total
+
+
+def phase_mesh_marigold(ckpt: str) -> int:
+    """Phase 18b (Marigold): a seeded pyramid ensemble at 480x640 in bf16, no
+    mesh against the mesh [cuda:0, cuda:0]. Returns kernel 1's launches of both."""
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    pipe = MarigoldPipeline.from_hf_dir(ckpt, device="cuda", dtype=torch.bfloat16)
+    launches = mesh_ensembles(pipe, "Marigold", ("depth_np", "uncertainty"))
+    del pipe
+    return launches
+
+
+def mesh_ensembles(pipe, label: str, fields: tuple) -> int:
+    """The mesh check of phase 18b on `pipe`: one member a call without the
+    mesh, two a call with it. The mesh shares the pipeline for a repeated
+    device; its second position is given a replica of its own
+    (`_replica_on`, what a second card gets), so the replica's build and the
+    gather run on the card. The members of each run are
+    recorded: equal to the bit, the outputs must be too; else (a card that
+    is not deterministic) within the BFGS drift (`ENSEMBLE_DRIFT`)."""
+    from diffusion_e2e_ft_tpu_torch import parallel
+    from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
+    from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
+
+    image = np.random.default_rng(21).integers(0, 256, (*MESH_HW, 3), dtype=np.uint8)
+    kw = dict(denoising_steps=MESH_STEPS, ensemble_size=MESH_MEMBERS, noise="pyramid", processing_res=0, seed=5,
+              color_map=None)
+    members, combine = [], ens.ensemble_depths
+
+    def recorded(preds, *args, **kwargs):
+        members.append(preds.float().cpu())
+        return combine(preds, *args, **kwargs)
+
+    ens.ensemble_depths = recorded
+    reset_launches()
+    try:
+        with recorded_shapes(fa) as shapes:
+            t0 = time.perf_counter()
+            want = pipe(image, batch_size=1, **kw)
+            t1 = time.perf_counter()
+            pipe.with_mesh(parallel.make_mesh(devices=["cuda:0", "cuda:0"]))
+            pipe._replicas[1] = pipe._replica_on(torch.device("cuda:0"))
+            check(pipe._replicas[1].unet is not pipe.unet, f"{label}: the mesh's second position holds no replica")
+            got = pipe(image, batch_size=2, **kw)
+            t2 = time.perf_counter()
+    finally:
+        ens.ensemble_depths = combine
+        pipe.with_mesh(None)
+    launches = read_launches()["flash_attention_fwd"]
+    check(shapes <= held_shapes()["flash_attention_fwd"], f"{label}: kernel 1 at {sorted(shapes)}, not all held")
+    member_diff = float((members[0] - members[1]).abs().max())
+    diffs = {f: float(np.abs(getattr(got, f) - getattr(want, f)).max()) for f in fields}
+    bound = 0.0 if member_diff == 0.0 else ENSEMBLE_DRIFT
+    print(f"[mesh] {label} bf16 480x640, {MESH_STEPS} steps, ensemble {MESH_MEMBERS}, pyramid: mesh [cuda:0, cuda:0] "
+          f"(2 members a call, 1 on a replica of its own) vs no mesh (1 a call): members max|d| {member_diff:.3e}, "
+          "outputs max|d| "
+          + ", ".join(f"{f} {d:.3e}" for f, d in diffs.items()) + f" (bound {bound}); {t1 - t0:.2f} s vs "
+          f"{t2 - t1:.2f} s; kernel 1 launches {launches}", flush=True)
+    check(all(d <= bound for d in diffs.values()), f"{label}: with_mesh changed the output: {diffs}")
+    return launches
+
+
+def phase_trainer_options(unet, vae, empty) -> None:
+    """Phase 18c, slice D3 on the card: (1) the remat policies' gradients
+    against the no-checkpoint ones (bf16, the same batch and weights); (2)
+    one SD2 step a D3 option at 480x640 bs 2, bf16, each from the same
+    weights (D3_STEPS steps; ms, peak, launches, losses against the
+    default's); (3) the sub-pixel decoder against the resize one, fp32 at
+    768x768, and the bf16 serving decode's ms and peak of each."""
+    from diffusion_e2e_ft_tpu_torch.training import E2ETrainer, TrainConfig
+    from diffusion_e2e_ft_tpu_torch.parallel import frozen_copy
+
+    batch = synthetic_batch(np.random.default_rng(22), 2, 480, 640, "depth", invalid=0.1)
+    base = TrainConfig(gradient_checkpointing=True, gradient_accumulation_steps=1, lr_warmup_steps=0)
+    start = {n: p.detach().cpu() for n, p in unet.named_parameters()}  # on the host: no share of the peak
+
+    def restore():
+        with torch.no_grad():
+            for n, p in unet.named_parameters():
+                p.copy_(start[n])
+
+    def grads(**override):
+        trainer = E2ETrainer(base.replace(**override), unet, vae, empty, compute_dtype=torch.bfloat16)
+        reset_launches()
+        loss, _, g = trainer.value_and_grad(batch)
+        return float(loss), g, read_launches()
+
+    loss0, plain, _ = grads(gradient_checkpointing=False)
+    for policy in ("dots", "dots_all"):
+        loss, g, launches = grads(remat_policy=policy)
+        rel = max(float((g[n] - plain[n]).abs().max()) / max(float(plain[n].abs().max()), 1e-30) for n in plain)
+        print(f"[d3] remat_policy={policy}: loss {loss:.6f} vs no checkpoint {loss0:.6f}; gradients max|d|/max|g| "
+              f"{rel:.2e} over {len(plain)} leaves (bound {BF16_BOUND}); launches {launches}", flush=True)
+        check(rel <= BF16_BOUND and launches == step_launches(UNET_SITES_480x640),
+              f"remat_policy={policy}: gradients off by {rel}, launches {launches}")
+        del g
+    del plain
+    torch.cuda.empty_cache()
+
+    results = {}
+    for name, override in D3_OPTIONS:
+        restore()
+        trainer = E2ETrainer(base.replace(**override), unet, vae, empty, compute_dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        state, ms, per_step, losses = timed_steps(trainer, trainer.init_state(), [batch] * D3_STEPS)
+        results[name] = {"ms": statistics.median(ms[1:]), "peak": torch.cuda.max_memory_allocated() / 2**30,
+                         "losses": losses, "launches": per_step[-1]}
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    restore()
+    del start
+    default = results["save nothing"]
+    for name, r in results.items():
+        rel = abs(r["losses"][1] - default["losses"][1]) / abs(default["losses"][1])
+        print(f"[d3] {name}: bf16 480x640 bs 2, median ms/step after the first {r['ms']:.1f}, peak {r['peak']:.3f} "
+              f"GiB, losses {[round(x, 6) for x in r['losses']]} (second vs the default's rel {rel:.2e}, bound "
+              f"{D3_LOSS_BOUND}); launches a step {r['launches']}", flush=True)
+        first = abs(r["losses"][0] - default["losses"][0]) / abs(default["losses"][0])  # the same forward
+        check(first <= 1e-6 and rel <= D3_LOSS_BOUND, f"{name}: losses {r['losses']}")
+        want = step_launches(UNET_SITES_480x640)
+        if name == "vae_decode_checkpoint":  # the backward runs the decode again: its mid attention and pairs
+            want = {k: n + {"flash_attention_fwd_lse": 1, "gn_channel_stats": sum(DECODER_PAIRS.values()),
+                            "gn_silu_conv3x3": sum(DECODER_PAIRS.values())}.get(k, 0) for k, n in want.items()}
+        check(r["launches"] == want, f"{name}: launches {r['launches']}, expected {want}")
+
+    cfg = dataclasses.replace(vae.config, fused_gn_conv=False)
+    resize, sub = frozen_copy(vae, "cuda", cfg), frozen_copy(vae, "cuda", dataclasses.replace(cfg, subpixel_upsample=True))
+    z = torch.randn(1, 4, SUBPIXEL_HW[0] // 8, SUBPIXEL_HW[1] // 8, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(23))
+    with torch.no_grad():
+        want, got = resize.decode(z), sub.decode(z)
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        del want, got
+        rows = []
+        for label, module in (("resize", resize), ("sub-pixel", sub)):
+            module.to(torch.bfloat16)
+            zb = z.to(torch.bfloat16)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: module.decode(zb))
+            rows.append(f"{label} {ms:.3f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"[d3] subpixel_upsample: fp32 decode at {SUBPIXEL_HW[0]}x{SUBPIXEL_HW[1]}, sub-pixel vs resize max|d|/max|d| "
+          f"{rel:.2e} (bound {SUBPIXEL_BOUND}); bf16 serving decode (CUDA events, median of 10): " + "; ".join(rows),
+          flush=True)
+    check(rel <= SUBPIXEL_BOUND, f"sub-pixel decode off by {rel}")
+    del resize, sub
+    torch.cuda.empty_cache()
+
+
+def save_weights(path: str, **parts) -> None:
+    """Modules' configs and weights (on the CPU, `dtype` if given) for phase 18a's processes."""
+    dtype = parts.pop("dtype", None)
+    out = {}
+    for key, value in parts.items():
+        if isinstance(value, torch.nn.Module):
+            out[f"{key}_config"] = value.config
+            value = {k: (v.detach().to("cpu", dtype) if dtype else v.detach().cpu()) for k, v in value.state_dict().items()}
+        out[key] = value
+    torch.save(out, path)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch; this run needs one GPU")
+    dp_work = tempfile.mkdtemp(prefix="chip_smoke_dp_")  # phase 18a's weights and results
+    try:
+        return run(dp_work)
+    finally:
+        shutil.rmtree(dp_work, ignore_errors=True)
+
+
+def run(dp_work: str) -> int:
     check(torch.cuda.device_count() == 1, f"expected one visible GPU, got {torch.cuda.device_count()}")
     from diffusion_e2e_ft_tpu_torch.kernels import _build
     from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dp_setup()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -2742,6 +3186,9 @@ def main() -> int:
             launches["flash_attention_fwd"] += phase_marigold_ensembles(fa, ckpt)  # slice C's main path
         gc.collect()
         torch.cuda.empty_cache()
+        launches["flash_attention_fwd"] += phase_mesh_marigold(ckpt)  # slice F's with_mesh
+        gc.collect()
+        torch.cuda.empty_cache()
         with recorded_shapes(fa) as eval_shapes:
             launches["flash_attention_fwd"] += phase_eval_path(fa, ckpt)  # slice E1's main path
         gc.collect()
@@ -2759,7 +3206,10 @@ def main() -> int:
     del cpu
     trained = phase_train(unet, vae, empty)
     launches.update({k: v for k, v in trained.items() if k != "flash_attention_fwd"})
+    phase_trainer_options(unet, vae, empty)  # slice D3
+    save_weights(os.path.join(dp_work, "sd2.pt"), unet=unet, vae=vae, empty=empty)  # for phase 18a
     del unet, vae, empty
+    gc.collect()
     torch.cuda.empty_cache()
 
     geo = phase_geowizard_kernels(fa)
@@ -2781,11 +3231,19 @@ def main() -> int:
     eval_shapes |= geo_eval_shapes
     check(eval_shapes == set(eval_attention_cases()),
           f"the eval path sent kernel 1 {sorted(eval_shapes)}, phase 3c expected {sorted(eval_attention_cases())}")
+    launches["flash_attention_fwd"] += mesh_ensembles(geo_pipe, "GeoWizard", ("depth_np", "normal_np", "uncertainty"))
     del geo_pipe
     gc.collect()
     torch.cuda.empty_cache()
-    geo_train = phase_geowizard_train(*phase_geowizard_train_parity())  # slice B2's main path
-    for name, n in [*geo_train.items(), *data_path.items()]:
+    geo_modules = phase_geowizard_train_parity()
+    geo_train = phase_geowizard_train(*geo_modules)  # slice B2's main path
+    save_weights(os.path.join(dp_work, "geowizard.pt"), unet=geo_modules[0], vae=geo_modules[1],
+                 encoder=geo_modules[2], dtype=torch.bfloat16)
+    del geo_modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_launches = phase_data_parallel(dp_work)  # slice F's main path, in processes of its own
+    for name, n in [*geo_train.items(), *data_path.items(), *dp_launches.items()]:
         launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
 

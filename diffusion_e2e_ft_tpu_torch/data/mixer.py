@@ -11,6 +11,12 @@ larger dataset.
 
 Additions: `BatchLoader` assembles fixed-shape NHWC numpy batches, and
 `Prefetcher` overlaps host-side decode with device compute.
+
+Data parallelism: a `BatchLoader` given `rank` and `world` walks the global
+batches (`batch_size` is the global one) in the single-process order and
+reads only the rank's block of rows of each; a dataset with per-sample
+randomness (`skip(n)`) is advanced past the rows the rank does not read, so
+each sample gets the draw it would get in one process.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import threading
 from typing import Any, Dict, Iterator, List, Sequence
 
 import numpy as np
+
+from diffusion_e2e_ft_tpu_torch.parallel.mesh import row_block
 
 DOMAIN_ONE_HOT = {
     "indoor": np.asarray([1.0, 0.0, 0.0], np.float32),
@@ -64,9 +72,14 @@ class BatchLoader:
         shuffle: bool = True,
         seed: int = 0,
         drop_last: bool = True,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} does not split over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.modality = modality
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -84,7 +97,14 @@ class BatchLoader:
             idx = order[start : start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
-            yield collate([self.dataset[int(i)] for i in idx], self.modality)
+            block = row_block(len(idx), self.rank, self.world)
+            skip = getattr(self.dataset, "skip", None)
+            if skip is not None:
+                skip(block.start)
+            rows = [self.dataset[int(i)] for i in idx[block]]
+            if skip is not None:
+                skip(len(idx) - block.stop)
+            yield collate(rows, self.modality)
 
 
 class MixedLoader:

@@ -239,6 +239,11 @@ class Hypersim:
 
         return postprocess_sample(rgb01, depth, normal, self.near_plane, self.far_plane, "indoor")
 
+    def skip(self, n: int) -> None:
+        """Advance the per-sample draws past `n` samples that are not read
+        (another data-parallel rank reads them)."""
+        self.rng.random(n)
+
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
@@ -306,6 +311,11 @@ class VirtualKITTI2:
             normal = kb_crop(normal)
 
         return postprocess_sample(rgb01, depth, normal, self.near_plane, self.far_plane, "outdoor")
+
+    def skip(self, n: int) -> None:
+        """Advance the per-sample draws past `n` samples that are not read
+        (another data-parallel rank reads them)."""
+        self.rng.random(n)
 
     def __iter__(self):
         for i in range(len(self)):

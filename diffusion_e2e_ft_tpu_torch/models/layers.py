@@ -130,18 +130,56 @@ class Downsample(nn.Module):
         return self.conv(x)
 
 
+class _SubpixelConv3x3(nn.Conv2d):
+    """A 3x3 conv (the plain `nn.Conv2d`: the same parameters, names and
+    forward) whose `upsample2x` computes conv3x3(nearest2x(x)) without the
+    2x tensor, port of `diffusion_e2e_ft_tpu/models/layers.py::_SubpixelConv3x3`.
+
+    An output pixel (2i + a, 2j + b) sees input rows {i + a - 1, i + a} and
+    columns {j + b - 1, j + b} through 2x2 kernels whose taps are sums of the
+    3x3 taps (rows a = 0: (w0, w1 + w2), a = 1: (w0 + w1, w2); columns
+    alike). So the four parities are one conv with a [4 Cout, C, 2, 2] weight
+    (folded in fp32) over the input padded to (H + 2) x (W + 2), giving
+    (H + 1) x (W + 1) windows, and an interleave of the four quadrants:
+    16 instead of 36 products an output pixel, exact up to rounding."""
+
+    def folded_weight(self) -> torch.Tensor:
+        w = self.weight.float()  # [Cout, C, 3, 3]
+        rows = (torch.stack([w[:, :, 0], w[:, :, 1] + w[:, :, 2]], 2),  # even output rows
+                torch.stack([w[:, :, 0] + w[:, :, 1], w[:, :, 2]], 2))  # odd output rows
+        quads = []
+        for r in rows:  # [Cout, C, 2, 3] -> columns of even, then odd, outputs
+            quads.append(torch.stack([r[..., 0], r[..., 1] + r[..., 2]], -1))
+            quads.append(torch.stack([r[..., 0] + r[..., 1], r[..., 2]], -1))
+        return torch.cat(quads)  # [4 Cout, C, 2, 2], quadrant (a, b) at 2a + b
+
+    def upsample2x(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        c = self.out_channels
+        y = F.conv2d(F.pad(x, (1, 1, 1, 1)), self.folded_weight().to(x.dtype))  # [B, 4 Cout, H + 1, W + 1]
+        y00, y01 = y[:, :c, :h, :w], y[:, c:2 * c, :h, 1:]
+        y10, y11 = y[:, 2 * c:3 * c, 1:, :w], y[:, 3 * c:, 1:, 1:]
+        z = torch.stack([torch.stack([y00, y01], -1), torch.stack([y10, y11], -1)], 3)  # [B, C, H, 2, W, 2]
+        return z.reshape(b, c, 2 * h, 2 * w) + self.bias.to(z.dtype)[:, None, None]
+
+
 class Upsample(nn.Module):
     """Nearest resize (2x, or to an explicit target so odd skips reconnect) + conv.
 
     `nearest-exact` samples at half-pixel centres, as `jax.image.resize`
-    does; plain `nearest` would pick other source rows at odd targets."""
+    does; plain `nearest` would pick other source rows at odd targets.
+    `subpixel=True` computes the exact 2x case as `_SubpixelConv3x3` (the
+    same parameters); explicit odd targets keep the resize."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, subpixel: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.subpixel = subpixel
+        self.conv = (_SubpixelConv3x3 if subpixel else nn.Conv2d)(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         target = tuple(out_hw) if out_hw is not None else (x.shape[2] * 2, x.shape[3] * 2)
+        if self.subpixel and target == (x.shape[2] * 2, x.shape[3] * 2):
+            return self.conv.upsample2x(x)
         x = F.interpolate(x, size=target, mode="nearest-exact")
         return self.conv(x)
 

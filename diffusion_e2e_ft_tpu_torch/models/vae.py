@@ -1,8 +1,8 @@
 """SD2 AutoencoderKL (VAE), NCHW, deterministic-mean latent path.
 
 Port of `diffusion_e2e_ft_tpu/models/vae.py`: `encode_mean` (posterior mean,
-no sampling) and `decode`, with the fused GN->conv option. The sub-pixel
-upsampler option of the JAX package is not ported yet.
+no sampling) and `decode`, with the fused GN->conv option and the decoder's
+sub-pixel upsamplers (`subpixel_upsample`).
 """
 
 from __future__ import annotations
@@ -38,6 +38,11 @@ class VAEConfig:
     # in the JAX package: `E2ETrainer` turns it on for its own VAE
     # (TrainConfig.fused_vae_kernels), serving keeps it off.
     fused_gn_conv: bool = False
+    # The decoder's nearest-2x -> conv3x3 upsamplers as one conv over the
+    # input and an interleave (layers._SubpixelConv3x3): the same parameters,
+    # exact up to rounding, no [2H, 2W, C] tensor. Off by default, as in the
+    # JAX package.
+    subpixel_upsample: bool = False
 
 
 class _EncoderDown(nn.Module):
@@ -100,13 +105,14 @@ class Encoder(nn.Module):
 
 
 class _DecoderUp(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_upsample: bool, groups: int, fused: bool):
+    def __init__(self, in_ch: int, out_ch: int, num_layers: int, add_upsample: bool, groups: int, fused: bool,
+                 subpixel: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList(
             [ResnetBlock(in_ch if j == 0 else out_ch, out_ch, groups, eps=1e-6, fused=fused)
              for j in range(num_layers)]
         )
-        self.upsamplers = nn.ModuleList([Upsample(out_ch)]) if add_upsample else None
+        self.upsamplers = nn.ModuleList([Upsample(out_ch, subpixel=subpixel)]) if add_upsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for resnet in self.resnets:
@@ -126,7 +132,7 @@ class Decoder(nn.Module):
             [
                 _DecoderUp(
                     up[max(i - 1, 0)], out, c.layers_per_block + 1, i < len(up) - 1, c.norm_num_groups,
-                    c.fused_gn_conv,
+                    c.fused_gn_conv, c.subpixel_upsample,
                 )
                 for i, out in enumerate(up)
             ]

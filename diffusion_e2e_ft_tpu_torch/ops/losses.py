@@ -14,7 +14,7 @@ Conventions (NHWC, as the JAX package):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,8 +39,14 @@ def compute_scale_and_shift(
     return scale, shift
 
 
-def ssi_loss(prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Scale-and-shift-invariant L1 depth loss, mean over all valid pixels in the batch."""
+def ssi_loss(
+    prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, count: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Scale-and-shift-invariant L1 depth loss, mean over all valid pixels in the batch.
+
+    `count` replaces the batch's own valid-pixel count as the divisor: a
+    data-parallel rank passes the global batch's, so the ranks' losses sum to
+    the global mean."""
     if prediction.ndim == 4:
         prediction = prediction.squeeze(-1)
     if target.ndim == 4:
@@ -51,17 +57,20 @@ def ssi_loss(prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor)
     scale, shift = compute_scale_and_shift(p, y, m)
     aligned = scale[:, None, None] * p + shift[:, None, None]
     abs_err = (aligned - y).abs() * m
-    return abs_err.sum() / m.sum().clamp_min(1.0)
+    return abs_err.sum() / (m.sum() if count is None else count).clamp_min(1.0)
 
 
-def angular_loss(prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean angular error (radians) between unit normal fields over valid pixels."""
+def angular_loss(
+    prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, count: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean angular error (radians) between unit normal fields over valid
+    pixels; `count` as in `ssi_loss`."""
     p, y = prediction.float(), target.float()
     if mask.ndim == 4:
         mask = mask[..., 0]
     m = mask.float()
     dot = (p * y).sum(-1).clamp(-1.0, 1.0)
-    return (torch.arccos(dot) * m).sum() / m.sum().clamp_min(1.0)
+    return (torch.arccos(dot) * m).sum() / (m.sum() if count is None else count).clamp_min(1.0)
 
 
 def nan_guarded(loss: torch.Tensor) -> torch.Tensor:

@@ -15,12 +15,13 @@ from a `torch.Generator` seeded with `seed`, shared by the member's depth and
 normal halves; it runs the members in chunks of `batch_size`, each chunk one
 2N batch through the UNet (joint attention over each member's pair) and the
 decode, and ensembles them: `ensemble_depths` for depth with its
-uncertainty, `ensemble_normals` for normals. The multi-chip mesh (slice F)
-is not ported yet.
+uncertainty, `ensemble_normals` for normals. `with_mesh` splits each chunk's
+members over several devices.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -33,6 +34,7 @@ from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
 from diffusion_e2e_ft_tpu_torch.ops import image as im
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
+from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy, mesh_replicas, run_members
 from diffusion_e2e_ft_tpu_torch.pipelines.marigold import init_random_
 
 DOMAINS = ("indoor", "outdoor", "object")
@@ -95,9 +97,30 @@ class GeoWizardPipeline:
         self.image_encoder = image_encoder.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
         self.scheduler_config = scheduler_config
         self.schedule = sched_ops.make_schedule(scheduler_config, device=self.device)
+        self._mesh, self._replicas = None, None  # with_mesh's mesh and replicas, in mesh order
 
     def with_mesh(self, mesh) -> "GeoWizardPipeline":
-        raise NotImplementedError("multi-device ensembles (with_mesh) are not ported yet (slice F: multi-GPU)")
+        """Split each call's ensemble members over `mesh`, as
+        `MarigoldPipeline.with_mesh`; a member's depth / normal task pair
+        stays on one device (joint attention couples it)."""
+        self._mesh = mesh
+        self._replicas = None if mesh is None else mesh_replicas(self, mesh, self._replica_on)
+        return self
+
+    def _replica_on(self, device: torch.device) -> "GeoWizardPipeline":
+        rep = copy.copy(self)
+        rep.device, rep._mesh, rep._replicas = device, None, None
+        rep.unet, rep.vae = frozen_copy(self.unet, device), frozen_copy(self.vae, device)
+        rep.image_encoder = frozen_copy(self.image_encoder, device)
+        rep.schedule = sched_ops.make_schedule(self.scheduler_config, device=device)
+        return rep
+
+    def _infer_members(self, rgb, domain, num_steps, latent0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`infer` over a chunk of members, split over the mesh when there is one."""
+        if self._replicas is None:
+            return self.infer(rgb, domain, num_steps, latent0)
+        return run_members(self._replicas, self._mesh, latent0,
+                           lambda rep, shard: rep.infer(rgb, domain, num_steps, shard), self.device)
 
     @classmethod
     def from_hf_dir(cls, path: str, device="cuda", dtype=torch.float32) -> "GeoWizardPipeline":
@@ -203,7 +226,7 @@ class GeoWizardPipeline:
         for start in range(0, ensemble_size, batch_size):
             latent0, _ = noise_ops.member_draws(noise, generator, min(batch_size, ensemble_size - start),
                                                 latent_shape, dtype=self.dtype)
-            d, nrm = self.infer(rgb, domain, denoising_steps, latent0)
+            d, nrm = self._infer_members(rgb, domain, denoising_steps, latent0)
             depths.append(d)
             normals.append(nrm)
         depth_preds, normal_preds = torch.cat(depths), torch.cat(normals)

@@ -11,11 +11,12 @@ schedulers); `__call__` draws them member by member from a `torch.Generator`
 seeded with `seed`, runs the ensemble in chunks of `batch_size` members
 batched natively (the JAX package maps a batch-1 graph over them, for a TPU
 layout problem), and ensembles the members (`ops/ensemble.py`) with their
-uncertainty.
+uncertainty. `with_mesh` splits each chunk's members over several devices.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Sequence
 
@@ -27,6 +28,7 @@ from diffusion_e2e_ft_tpu_torch.ops import ensemble as ens
 from diffusion_e2e_ft_tpu_torch.ops import image as im
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
+from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy, mesh_replicas, run_members
 
 # max_res: members a call, from `perf/torch_batch_sweep.py` (bf16, 10 DDIM steps) on an NVIDIA H100 80GB HBM3
 # at 700 W: the least ms a member with a peak under 39.6 GiB (PERF.md, "Ensemble batch sweep")
@@ -98,9 +100,35 @@ class MarigoldPipeline:
         self.scheduler_config = scheduler_config
         self.schedule = sched_ops.make_schedule(scheduler_config, device=self.device)
         self.empty_text_embed = torch.as_tensor(empty_text_embed).to(self.device, dtype)
+        self._mesh, self._replicas = None, None  # with_mesh's mesh and replicas, in mesh order
 
     def with_mesh(self, mesh) -> "MarigoldPipeline":
-        raise NotImplementedError("multi-device ensembles (with_mesh) are not ported yet (slice F: multi-GPU)")
+        """Split each call's ensemble members over `mesh` (`parallel.make_mesh`):
+        one replica of the modules per mesh device (the pipeline itself on its
+        own device; a repeated device shares one), each device runs its block
+        of a chunk's members, and the results are gathered in member order.
+        The draws are made for all members first, as without a mesh, so the
+        output does not depend on the mesh; a chunk whose member count does
+        not divide by the mesh size runs whole on the first device (what the
+        JAX `shard_batch` replication computes). None drops the mesh."""
+        self._mesh = mesh
+        self._replicas = None if mesh is None else mesh_replicas(self, mesh, self._replica_on)
+        return self
+
+    def _replica_on(self, device: torch.device) -> "MarigoldPipeline":
+        rep = copy.copy(self)
+        rep.device, rep._mesh, rep._replicas = device, None, None
+        rep.unet, rep.vae = frozen_copy(self.unet, device), frozen_copy(self.vae, device)
+        rep.schedule = sched_ops.make_schedule(self.scheduler_config, device=device)
+        rep.empty_text_embed = self.empty_text_embed.to(device)
+        return rep
+
+    def _infer_members(self, rgb, num_steps, normals, latent0, step_noise) -> torch.Tensor:
+        """`infer` over a chunk of members, split over the mesh when there is one."""
+        if self._replicas is None:
+            return self.infer(rgb, num_steps, normals, latent0, step_noise)
+        return run_members(self._replicas, self._mesh, {"latent0": latent0, "step_noise": step_noise}, lambda rep, m:
+                           rep.infer(rgb, num_steps, normals, m["latent0"], m["step_noise"]), self.device)
 
     @classmethod
     def from_hf_dir(cls, path: str, device="cuda", dtype=torch.float32, **kw) -> "MarigoldPipeline":
@@ -228,7 +256,7 @@ class MarigoldPipeline:
                 noise, generator, min(batch_size, ensemble_size - start), latent_shape,
                 self.step_noises(denoising_steps), self.dtype,
             )
-            preds.append(self.infer(rgb, denoising_steps, normals, latent0, step_noise))
+            preds.append(self._infer_members(rgb, denoising_steps, normals, latent0, step_noise))
         preds = torch.cat(preds)  # [E, H, W(, 3)]
 
         if normals:

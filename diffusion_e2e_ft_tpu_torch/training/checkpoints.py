@@ -7,6 +7,9 @@ rotated to `checkpoints_total_limit` and restored in place. The final export
 is an HF pipeline directory with trailing timestep spacing baked into the
 scheduler config, as the JAX package's `export_hf_pipeline` writes it; an
 export from either package loads in both.
+
+In a data-parallel group only rank 0 writes (`save_checkpoint`,
+`export_hf_pipeline`); every rank reads on restore.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from diffusion_e2e_ft_tpu_torch.parallel.sharding import is_main_process
 from diffusion_e2e_ft_tpu_torch.training.trainer import TrainState
 
 _STEP_RE = re.compile(r"checkpoint-(\d+)$")
@@ -47,8 +51,11 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 
 
 def save_checkpoint(output_dir: str, step: int, state: TrainState, total_limit: Optional[int] = None) -> str:
-    """Save the full TrainState; rotate old checkpoints beyond total_limit."""
+    """Save the full TrainState; rotate old checkpoints beyond total_limit.
+    Returns the checkpoint's path (written by rank 0 only)."""
     path = _ckpt_path(output_dir, step)
+    if not is_main_process():
+        return path
     tmp = f"{path}.tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -113,6 +120,8 @@ def export_hf_pipeline(
     expects the real empty-prompt or image embedding."""
     from diffusion_e2e_ft_tpu_torch.pipelines import loading
 
+    if not is_main_process():
+        return
     copy_subfolders = None
     if source_checkpoint is not None:
         copy_subfolders = loading.frozen_tower_subfolders(source_checkpoint, modality)

@@ -1,9 +1,8 @@
 """Training configuration, port of `diffusion_e2e_ft_tpu/training/config.py`.
 
 The same fields, defaults and JSON form as the JAX package's `TrainConfig`, so
-a config written by either package loads in both. What the port does with
-the options it has not ported is the trainer's business (it raises, naming
-the slice); see `training/trainer.py`.
+a config written by either package loads in both; `training/trainer.py`
+says how the port runs each option.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ class TrainConfig:
     num_data_parallel: int = 1
     # memory: torch.utils.checkpoint of the whole UNet (save nothing)
     gradient_checkpointing: bool = True
-    # JAX checkpoint policies ("dots", "dots_all"); the port has only None
+    # what the UNet checkpoint saves: None nothing, "dots" the unbatched products, "dots_all" all products
     remat_policy: Optional[str] = None
     # recompute the frozen-VAE decode in the backward pass
     vae_decode_checkpoint: bool = False

@@ -22,7 +22,11 @@ attention.
   (v_prediction) or the noise; the squared error masked by the 8x max-pooled
   latent validity (doubled), over max(sum(mask) C, 1).
 
-A batch with no valid pixel has loss 0. Batch leaves (numpy or torch): rgb
+A batch with no valid pixel has loss 0. In a data-parallel group (see
+`trainer.py`) both terms of the E2E loss, and the diffusion loss, divide by
+the global batch's counts, each term is NaN-guarded on its global value, and
+t and the noise are drawn for the global batch, the pair's rows taken from
+both halves. Batch leaves (numpy or torch): rgb
 [B,H,W,3] in [-1,1]; depth_target [B,H,W]; normal_target [B,H,W,3] (the
 standard convention, flipped here); val_mask [B,H,W] bool; domain [3] one-hot
 (per batch; indoor when absent).
@@ -40,9 +44,10 @@ from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition
 from diffusion_e2e_ft_tpu_torch.models import clip as clip_models
 from diffusion_e2e_ft_tpu_torch.ops import losses as L
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
+from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy
 from diffusion_e2e_ft_tpu_torch.pipelines.geowizard import switcher_embedding
 from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
-from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer, frozen_copy
+from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer
 
 
 def latent_valid_mask(val_mask: torch.Tensor) -> torch.Tensor:
@@ -75,6 +80,15 @@ class GeoWizardTrainer(E2ETrainer):
         )
         self.image_encoder = frozen_copy(image_encoder, self.device)
 
+    def _global_t(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch's timesteps from this rank's (explicit ones; drawn
+        ones are drawn for the global batch)."""
+        if self.dp is None or self.dp.world == 1:
+            return t
+        parts = [torch.zeros_like(t) for _ in range(self.dp.world)]
+        parts[self.dp.rank] = t
+        return self.dp.all_sum(torch.cat(parts))
+
     def loss(
         self, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None, *,
         timesteps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -96,24 +110,26 @@ class GeoWizardTrainer(E2ETrainer):
             context = torch.cat([embed, embed])
             class_vec = switcher_embedding(batch.get("domain", [1.0, 0.0, 0.0]), batch=b).to(self.device)
 
+            world = 1 if self.dp is None else self.dp.world
             if c.e2e:  # the single step: noise is the input at t = 999
-                t2 = torch.full((2 * b,), self.scheduler_config.num_train_timesteps - 1, dtype=torch.long,
-                                device=self.device)
-                noisy = self._make_noisy_latents(rgb_latents2.shape, generator, t2) if noise is None \
-                    else noise.to(rgb_latents)
+                t_all = torch.full((b * world,), self.scheduler_config.num_train_timesteps - 1, dtype=torch.long,
+                                   device=self.device)
+                t2 = torch.cat([self._rows(t_all)] * 2)
+                noisy = self._noise(rgb_latents2.shape, generator, torch.cat([t_all, t_all]), pair=True) \
+                    if noise is None else noise.to(rgb_latents)
             else:  # standard diffusion training: GT geometry latents plus noise at a random t
                 if timesteps is not None:
-                    t = torch.as_tensor(timesteps, device=self.device)
+                    t_all = self._global_t(torch.as_tensor(timesteps, device=self.device).long())
                 elif generator is None:
                     raise ValueError("the diffusion-loss mode draws t from a torch.Generator: pass one to the step")
-                else:
-                    t = torch.randint(0, self.scheduler_config.num_train_timesteps, (b,), generator=generator,
-                                      device=self.device)
-                t2 = torch.cat([t, t]).long()
+                else:  # drawn for the global batch
+                    t_all = torch.randint(0, self.scheduler_config.num_train_timesteps, (b * world,),
+                                          generator=generator, device=self.device)
+                t2 = torch.cat([self._rows(t_all)] * 2).long()
                 geo = torch.cat([depth_gt[..., None].expand(-1, -1, -1, 3), -normal_gt]).permute(0, 3, 1, 2)
                 geo_latents = self._encode(geo)
-                eps = self._make_noisy_latents(geo_latents.shape, generator, t2) if noise is None \
-                    else noise.to(geo_latents)
+                eps = self._noise(geo_latents.shape, generator, torch.cat([t_all, t_all]), pair=True) \
+                    if noise is None else noise.to(geo_latents)
                 noisy = sched_ops.add_noise(self.schedule, geo_latents, eps, t2)
 
             model_pred = self._unet(torch.cat([rgb_latents2, noisy], dim=1), t2, context, class_vec).float()
@@ -122,14 +138,15 @@ class GeoWizardTrainer(E2ETrainer):
                 decoded = self._decode(x0)  # [2B, H, W, 3]
 
         metrics: Dict[str, torch.Tensor] = {}
+        count = self._valid_count(mask)
         if c.e2e:
             depth_dec, normal_dec = decoded[:b], decoded[b:]
             depth_est = depth_dec.mean(dim=-1).clamp(-1.0, 1.0)
             normal_est = (normal_dec / (torch.linalg.vector_norm(normal_dec, dim=-1, keepdim=True) + 1e-5)).clamp(
                 -1.0, 1.0)
             # the reference flips the GT normals into GeoWizard's convention
-            ssi = L.nan_guarded(L.ssi_loss(depth_est, depth_gt, mask))
-            ang = L.nan_guarded(L.angular_loss(normal_est, -normal_gt, mask))
+            ssi = self._nan_guarded(L.ssi_loss(depth_est, depth_gt, mask, count))
+            ang = self._nan_guarded(L.angular_loss(normal_est, -normal_gt, mask, count))
             loss = c.ssi_weight * ssi + c.angular_weight * ang
             metrics.update({"loss_ssi": ssi.detach(), "loss_angular": ang.detach()})
         else:
@@ -140,8 +157,9 @@ class GeoWizardTrainer(E2ETrainer):
             lmask = latent_valid_mask(mask)
             lmask2 = torch.cat([lmask, lmask])[:, None].float()  # [2B, 1, h, w]
             se = (model_pred - target) ** 2 * lmask2
-            loss = se.sum() / (lmask2.sum() * target.shape[1]).clamp_min(1.0)
+            cells = lmask2.sum() if self.dp is None else self.dp.all_sum(lmask2.sum())
+            loss = se.sum() / (cells * target.shape[1]).clamp_min(1.0)
         # an all-invalid batch contributes zero loss (the reference skips it)
-        loss = torch.where(mask.any(), loss, torch.zeros_like(loss))
+        loss = torch.where(self._any_valid(mask, count), loss, torch.zeros_like(loss))
         metrics["loss"] = loss.detach()
         return loss, metrics

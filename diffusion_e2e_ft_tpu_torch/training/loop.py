@@ -9,6 +9,12 @@ wait for the device at every micro-step. The loop owns the steps' random
 stream: a `torch.Generator` on the trainer's device seeded from `config.seed`
 (the JAX loop's `jax.random.key(config.seed)`), passed to every step; as in
 the JAX loop, it restarts from the seed on resume.
+
+Data parallelism: with the trainer in a group (`trainer.place_frozen`), every
+rank runs this loop over its own rows of each global batch. The generators
+are seeded alike on every rank, every rank restores the same checkpoint on
+resume and starts from rank 0's state, and only rank 0 writes the arguments,
+the logs and the checkpoints. `img_per_sec` counts the global batch.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from diffusion_e2e_ft_tpu_torch.parallel.sharding import is_main_process
 from diffusion_e2e_ft_tpu_torch.training import checkpoints as ckpt
 from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer, TrainState
 from diffusion_e2e_ft_tpu_torch.utils.logging import ScalarLogger, StepTimer, write_arguments
@@ -34,7 +41,7 @@ def run_training(
     """Run until config.max_train_steps optimizer steps; returns the final state."""
     config = trainer.config
     out_dir = config.output_dir
-    os.makedirs(out_dir, exist_ok=True)
+    world = 1 if trainer.dp is None else trainer.dp.world
     write_arguments(out_dir, {"config": config.to_json()})
     logger = ScalarLogger(os.path.join(out_dir, "logs"))
 
@@ -45,6 +52,7 @@ def run_training(
         else:
             state = ckpt.restore_checkpoint(path, state)
             print(f"[train] resumed from {path} at step {state.step}", flush=True)
+    state = trainer.replicate_state(state)
 
     generator = torch.Generator(device=trainer.device).manual_seed(config.seed)
     timer = StepTimer()
@@ -78,12 +86,13 @@ def run_training(
                         "train_loss": window,
                         "grad_norm": grad_norm,
                         "step_time_s": timer.mean_step_time,
-                        "img_per_sec": timer.items_per_sec(len(batch["rgb"])),
+                        "img_per_sec": timer.items_per_sec(len(batch["rgb"]) * world),
                     })
                 window_losses = []
                 if step % config.checkpointing_steps == 0:
                     path = ckpt.save_checkpoint(out_dir, step, state, config.checkpoints_total_limit)
-                    print(f"[train] saved {path}", flush=True)
+                    if is_main_process():
+                        print(f"[train] saved {path}", flush=True)
                 if step >= config.max_train_steps:
                     break
             epoch += 1

@@ -3,7 +3,8 @@
 `diffusion_e2e_ft_tpu/training/trainer.py::_build_optimizer` chains
 `optax.clip_by_global_norm` and `optax.adamw`, splits the parameters into a
 "base" group and a "class_embedding" group with its own learning-rate
-multiplier (`optax.multi_transform`), and wraps the lot in `optax.MultiSteps`
+multiplier (`optax.multi_transform`, only when the multiplier is not 1: at 1
+one chain clips all parameters together), and wraps the lot in `optax.MultiSteps`
 for gradient accumulation. torch.optim.AdamW differs in small ways (where the
 decay is applied, when the learning rate is read, no accumulation), so the
 port writes the same arithmetic out:
@@ -15,7 +16,14 @@ port writes the same arithmetic out:
 - p <- p - lr(count) u, with lr read at the count before this update;
 - accumulation over K micro-steps: acc <- acc + (g - acc) / (n + 1) (optax's
   running mean), applied at the K-th micro-step; parameters do not move in
-  between.
+  between;
+- `mu_dtype` (optax's `mu_dtype`, the JAX `TrainConfig.adam_mu_dtype`): the
+  first moment is stored in that dtype, zeros at init. A step computes
+  m = (1 - b1) g + b1 m_stored in fp32, with b1 rounded to the stored dtype
+  (optax's weak-typed scalar takes the moment's dtype) and the product not
+  rounded (exact in fp32; the jitted JAX step computes it so: XLA keeps the
+  excess precision), takes the update and its bias correction from that
+  fp32 m, and stores m cast back (round to nearest even).
 
 The state is a plain dict of ints and tensor dicts, so `torch.save` writes it.
 Updates run as `torch._foreach_*` ops, a few launches per op for all tensors.
@@ -23,7 +31,7 @@ Updates run as `torch._foreach_*` ops, a few launches per op for all tensors.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
@@ -56,6 +64,7 @@ class OptaxAdamW:
         max_grad_norm: float,
         class_embedding_lr_mult: float = 1.0,
         accumulate: int = 1,
+        mu_dtype: Optional[torch.dtype] = None,
     ):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -63,10 +72,13 @@ class OptaxAdamW:
         self.max_grad_norm = max_grad_norm
         self.lr_mult = {"base": 1.0, "class_embedding": class_embedding_lr_mult}
         self.accumulate = accumulate
+        self.mu_dtype = mu_dtype
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
-        zeros = lambda: {n: torch.zeros_like(p, memory_format=torch.preserve_format) for n, p in params.items()}  # noqa: E731
-        state = {"count": 0, "mu": zeros(), "nu": zeros(), "mini_step": 0, "acc": None}
+        zeros = lambda dtype=None: {  # noqa: E731
+            n: torch.zeros_like(p, dtype=dtype, memory_format=torch.preserve_format) for n, p in params.items()
+        }
+        state = {"count": 0, "mu": zeros(self.mu_dtype), "nu": zeros(), "mini_step": 0, "acc": None}
         if self.accumulate > 1:
             state["acc"] = zeros()
         return state
@@ -95,8 +107,9 @@ class OptaxAdamW:
         count = state["count"]
         bias1 = 1.0 - self.b1 ** (count + 1)
         bias2 = 1.0 - self.b2 ** (count + 1)
+        split = self.lr_mult["class_embedding"] != 1.0  # the JAX trainer's multi_transform
         for group in GROUPS:
-            names = [n for n in params if group_of(n) == group]
+            names = [n for n in params if (group_of(n) if split else "base") == group]
             if not names:
                 continue
             g = [grads[n] for n in names]
@@ -106,18 +119,27 @@ class OptaxAdamW:
             norm = global_norm(g)
             clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             g = torch._foreach_mul(g, clip)
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
             torch._foreach_mul_(nu, self.b2)
             torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+            if self.mu_dtype is None:
+                torch._foreach_mul_(mu, self.b1)
+                torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+                m = mu
+            else:  # the fp32 moment in the clipped gradients' storage: no list of its own
+                torch._foreach_mul_(g, 1.0 - self.b1)
+                # + b1 m_stored, b1 in the moment's dtype, the product exact in fp32
+                torch._foreach_add_(g, mu, alpha=torch.tensor(self.b1, dtype=self.mu_dtype).item())
+                m = g
             denom = torch._foreach_div(nu, bias2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, self.eps)
-            u = torch._foreach_div(mu, bias1)
+            u = torch._foreach_div(m, bias1)
             torch._foreach_div_(u, denom)
             torch._foreach_add_(u, p, alpha=self.weight_decay)
             lr = self.schedule(count) * self.lr_mult[group]
             torch._foreach_add_(p, u, alpha=-lr)
+            if m is not mu:
+                torch._foreach_copy_(mu, m)  # cast to the stored dtype
         state["count"] = count + 1
 
 

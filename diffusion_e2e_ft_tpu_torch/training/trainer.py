@@ -38,25 +38,45 @@ trainer's schedule bank: 16 rows of octave scales drawn once from
 each step (a host sync: the row sets the octaves' shapes). The joint
 GeoWizard modality is `training/geowizard.py::GeoWizardTrainer`.
 
-Not ported here, each raising `NotImplementedError` naming its slice:
-`adam_mu_dtype` and the JAX remat policies (slice D3). Data-parallel `shard`
-/ `place_frozen` belong to slice F.
+Options: `adam_mu_dtype` stores Adam's first moment in that dtype with
+optax's arithmetic (`training/optim.py`). `remat_policy` picks what the UNet
+checkpoint keeps, as the JAX policies do: None saves nothing (the whole UNet
+is recomputed); "dots" saves the outputs of the matrix products without a
+batch dimension (`aten.mm`, `aten.addmm`: the linear layers,
+`dots_with_no_batch_dims_saveable`); "dots_all" also the batched ones
+(`aten.bmm`, `aten.baddbmm`: the plain attention's products,
+`dots_saveable`). Under both the convolutions and the attention kernels are
+recomputed: a JAX conv and a Pallas call are not dots.
+
+Data parallelism (`shard` / `place_frozen`, the JAX GSPMD step's
+counterparts): each rank of a `parallel.DataParallel` group holds a replica
+and its rows of the global batch. The losses stay means over every valid
+pixel of the global batch: a rank divides its sums by the global valid
+count, and the gradients are summed over the ranks before the norm, the
+clipping and the accumulation, so the step equals the one-process step on
+the global batch. The no-valid-pixel guard and the NaN guard read the global
+loss (a NaN on one rank zeroes every rank's). Noise and timesteps are drawn
+for the global batch from the identically seeded generators and each rank
+keeps its rows, so the draws do not depend on the number of ranks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition
 from diffusion_e2e_ft_tpu_torch.ops import losses as L
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
+from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy
+from diffusion_e2e_ft_tpu_torch.parallel.sharding import DataParallel, shard_train_batch
 from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
 from diffusion_e2e_ft_tpu_torch.training.lr import iter_exponential_schedule
 from diffusion_e2e_ft_tpu_torch.training.optim import OptaxAdamW, ema_update_, global_norm
@@ -74,35 +94,30 @@ class TrainState:
     ema_params: Optional[Dict[str, torch.Tensor]] = None
 
 
+# what each remat policy saves of the checkpointed UNet's forward
+SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "dots_all": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                 torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+}
+MU_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+
 def check_ported(
     config: TrainConfig, device: torch.device, modalities: Tuple[str, ...] = ("depth", "normals")
 ) -> None:
     """Raise for a modality outside `modalities` (the trainer's own) and for
-    the options this port does not run yet, naming their slice."""
+    an unknown noise type, remat policy or moment dtype."""
     if config.modality not in modalities:
         if config.modality == "joint":
             raise ValueError("modality='joint' is the GeoWizard trainer's: use training.geowizard.GeoWizardTrainer")
         raise ValueError(f"Unknown modality: {config.modality}")
     if config.noise_type not in (None, "zeros", "gaussian", "pyramid"):
         raise ValueError(f"Unknown noise type: {config.noise_type}")
-    if config.adam_mu_dtype is not None:
-        raise NotImplementedError("adam_mu_dtype is not ported yet (slice D3)")
-    if config.remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r} is a JAX checkpoint policy, not ported (slice D3); "
-            "the port checkpoints the whole UNet (remat_policy=None)"
-        )
-
-
-def frozen_copy(module: torch.nn.Module, device: torch.device, config=None) -> torch.nn.Module:
-    """A frozen (eval, no grad) module of its own on `device`, built from
-    `config` (default: `module.config`) over `module`'s weights: their storage
-    is shared when `module` already lies on `device`, copied there when not.
-    `module` itself is not changed."""
-    with torch.device("meta"):
-        own = type(module)(module.config if config is None else config)
-    own.load_state_dict(module.state_dict(), assign=True)
-    return own.to(device).eval().requires_grad_(False)
+    if config.adam_mu_dtype is not None and config.adam_mu_dtype not in MU_DTYPES:
+        raise ValueError(f"Unknown adam_mu_dtype {config.adam_mu_dtype!r}; expected one of {sorted(MU_DTYPES)}")
+    if config.remat_policy is not None and config.remat_policy not in SAVED_OPS:
+        raise ValueError(f"Unknown remat_policy {config.remat_policy!r}; expected None, 'dots' or 'dots_all'")
 
 
 def pyramid_scale_bank(seed: int, base: float, spread: float, rows: int = 16, octaves: int = 10) -> np.ndarray:
@@ -141,6 +156,7 @@ class E2ETrainer:
         self.schedule = sched_ops.make_schedule(self.scheduler_config, device=self.device)
         self.latent_scale = latent_scale
         self.pyramid_scale_bank = pyramid_scale_bank(config.seed, *self.PYRAMID_BANK)
+        self.dp: Optional[DataParallel] = None  # set by place_frozen / shard
         c = config
         # the reference scales schedule lengths by the data-parallel degree
         self.lr_schedule = iter_exponential_schedule(
@@ -154,12 +170,75 @@ class E2ETrainer:
             weight_decay=c.adam_weight_decay, max_grad_norm=c.max_grad_norm,
             class_embedding_lr_mult=c.class_embedding_lr_mult,
             accumulate=c.gradient_accumulation_steps,
+            mu_dtype=None if c.adam_mu_dtype is None else MU_DTYPES[c.adam_mu_dtype],
         )
 
     def init_state(self) -> TrainState:
         params = dict(self.unet.named_parameters())
         ema = {n: p.detach().clone() for n, p in params.items()} if self.config.use_ema else None
         return TrainState(0, 0, params, self.optimizer.init(params), ema)
+
+    # ------------------------------------------------------------------
+    # Data parallelism
+    # ------------------------------------------------------------------
+
+    def place_frozen(self, dp: DataParallel) -> None:
+        """Join the data-parallel group `dp`. The frozen modules were built on
+        the UNet's device, which must be the rank's: each rank holds its own
+        replica of them, as the JAX `place_frozen` replicates them."""
+        if self.device != dp.device:
+            raise ValueError(f"the UNet lies on {self.device}, rank {dp.rank}'s device is {dp.device}")
+        self.dp = dp
+
+    def replicate_state(self, state: TrainState) -> TrainState:
+        """Give every rank rank 0's parameters, optimizer moments and EMA."""
+        if self.dp is not None:
+            tensors = list(state.params.values())
+            tensors += [t for v in state.opt_state.values() if isinstance(v, dict) for t in v.values()]
+            tensors += list((state.ema_params or {}).values())
+            self.dp.broadcast_(tensors)
+        return state
+
+    def shard(self, state: TrainState, batch: Mapping[str, Any], dp: DataParallel):
+        """(the replicated state, this rank's rows of the global `batch`)."""
+        self.place_frozen(dp)
+        return self.replicate_state(state), shard_train_batch(batch, dp.rank, dp.world)
+
+    def _noise(self, shape, generator: Optional[torch.Generator], timesteps: Optional[torch.Tensor] = None,
+               pair: bool = False) -> torch.Tensor:
+        """This rank's rows of the noise latent drawn for the global batch:
+        `shape` is the rank's, `timesteps` the global batch's; `pair` takes
+        the rows from both halves of a [depth; normal] task pair."""
+        world = 1 if self.dp is None else self.dp.world
+        if world == 1 or self.config.noise_type in (None, "zeros"):
+            return self._make_noisy_latents(shape, generator, timesteps)
+        noise = self._make_noisy_latents((shape[0] * world, *shape[1:]), generator, timesteps)
+        return self._rows(noise, pair)
+
+    def _rows(self, x: torch.Tensor, pair: bool = False) -> torch.Tensor:
+        """This rank's rows of a global-batch tensor (of each half with `pair`)."""
+        if self.dp is None:
+            return x
+        if not pair:
+            return x[self.dp.rows(x.shape[0])]
+        half = x.shape[0] // 2
+        return torch.cat([x[:half][self.dp.rows(half)], x[half:][self.dp.rows(half)]])
+
+    def _valid_count(self, mask: torch.Tensor) -> Optional[torch.Tensor]:
+        """The global batch's valid count of `mask` (None in one process: the
+        losses count their own batch)."""
+        return None if self.dp is None else self.dp.all_sum(mask.sum().float())
+
+    def _any_valid(self, mask: torch.Tensor, count: Optional[torch.Tensor]) -> torch.Tensor:
+        return mask.any() if count is None else count > 0
+
+    def _nan_guarded(self, loss: torch.Tensor) -> torch.Tensor:
+        """`losses.nan_guarded` on the global loss: 0 on every rank when any
+        rank's part is NaN."""
+        if self.dp is None:
+            return L.nan_guarded(loss)
+        nan = self.dp.all_sum(torch.isnan(loss).float()) > 0
+        return torch.where(nan, torch.zeros_like(loss), loss)
 
     # ------------------------------------------------------------------
     # Forward + loss
@@ -199,9 +278,13 @@ class E2ETrainer:
             return (self.vae.encode_mean(x) * self.latent_scale).float()
 
     def _unet(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor, *class_labels) -> torch.Tensor:
-        if self.config.gradient_checkpointing:
+        c = self.config
+        if not c.gradient_checkpointing:
+            return self.unet(x, t, context, *class_labels)
+        if c.remat_policy is None:
             return checkpoint(self.unet, x, t, context, *class_labels, use_reentrant=False)
-        return self.unet(x, t, context, *class_labels)
+        saved = functools.partial(create_selective_checkpoint_contexts, list(SAVED_OPS[c.remat_policy]))
+        return checkpoint(self.unet, x, t, context, *class_labels, use_reentrant=False, context_fn=saved)
 
     def _decode(self, x0: torch.Tensor) -> torch.Tensor:
         """Frozen VAE decode of x0 inside the differentiated graph -> [B, H, W, 3] fp32."""
@@ -227,32 +310,40 @@ class E2ETrainer:
         with self._autocast():
             rgb_latents = self._encode(rgb)
             t = torch.full((b,), self.scheduler_config.num_train_timesteps - 1, dtype=torch.long, device=self.device)
-            noisy = self._make_noisy_latents(rgb_latents.shape, generator) if noise is None else noise.to(rgb_latents)
+            noisy = self._noise(rgb_latents.shape, generator) if noise is None else noise.to(rgb_latents)
             context = self.empty_text_embed.expand(b, -1, -1)
             unet_in = torch.cat([rgb_latents, noisy], dim=1) if c.noise_type is not None else rgb_latents
             model_pred = self._unet(unet_in, t, context)
             x0 = sched_ops.pred_original_sample(self.scheduler_config, self.schedule, model_pred.float(), t, noisy)
             decoded = self._decode(x0)  # [B, H, W, 3]
 
+        count = self._valid_count(mask)
         if c.modality == "depth":
             est = decoded.mean(dim=-1).clamp(-1.0, 1.0)
-            loss = L.nan_guarded(L.ssi_loss(est, target, mask))
+            loss = self._nan_guarded(L.ssi_loss(est, target, mask, count))
         else:
             norm = torch.linalg.vector_norm(decoded, dim=-1, keepdim=True) + 1e-5
             est = (decoded / norm).clamp(-1.0, 1.0)
-            loss = L.nan_guarded(L.angular_loss(est, target, mask))
+            loss = self._nan_guarded(L.angular_loss(est, target, mask, count))
         # an all-invalid batch contributes zero loss (the reference skips it)
-        loss = torch.where(mask.any(), loss, torch.zeros_like(loss))
+        loss = torch.where(self._any_valid(mask, count), loss, torch.zeros_like(loss))
         return loss, {"loss": loss.detach()}
 
     def value_and_grad(
         self, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None, **explicit
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """(loss, metrics, gradient of the loss by UNet parameter name);
-        `explicit` goes to `loss` (the tests' fixed draws)."""
+        `explicit` goes to `loss` (the tests' fixed draws). In a data-parallel
+        group the loss, the metrics and the gradients are the global batch's:
+        the ranks' parts summed."""
         names, params = zip(*self.unet.named_parameters())
         loss, metrics = self.loss(batch, generator, **explicit)
         grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        if self.dp is not None:
+            self.dp.all_reduce_(grads)
+            keys = list(metrics)
+            metrics = dict(zip(keys, self.dp.all_sum(torch.stack([metrics[k].float() for k in keys])).unbind()))
+            loss = metrics["loss"]
         return loss.detach(), metrics, dict(zip(names, grads))
 
     # ------------------------------------------------------------------
@@ -266,7 +357,8 @@ class E2ETrainer:
         (zeros noise ignores it). With gradient accumulation the parameters
         move only at every K-th call (optax.MultiSteps semantics). Metrics stay
         on the device: the losses and `grad_norm` (the raw micro-batch
-        gradient's global norm, before clipping) are tensors; `lr_step` is an int."""
+        gradient's global norm, before clipping) are tensors; `lr_step` is an int.
+        In a data-parallel group `batch` holds the rank's rows."""
         _, metrics, grads = self.value_and_grad(batch, generator)
         metrics["grad_norm"] = global_norm(list(grads.values()))
         self.optimizer.update(grads, state.opt_state, state.params)

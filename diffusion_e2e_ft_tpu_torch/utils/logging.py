@@ -1,7 +1,8 @@
 """Scalar logging and the step-time meter of the training loop: small copies of
 `diffusion_e2e_ft_tpu/utils/logging.py` (JSONL part) and
 `utils/profiling.py::StepTimer`, so the port's loop imports nothing of the
-JAX package."""
+JAX package. In a data-parallel group only rank 0 writes: the others'
+`ScalarLogger` and `write_arguments` do nothing."""
 
 from __future__ import annotations
 
@@ -10,26 +11,35 @@ import os
 import time
 from typing import List, Mapping, Optional
 
+from diffusion_e2e_ft_tpu_torch.parallel.sharding import is_main_process
+
 
 class ScalarLogger:
     """Append scalars to <dir>/metrics.jsonl, one JSON object per call."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._jsonl = None
+        if is_main_process():
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
     def log(self, step: int, scalars: Mapping[str, float]) -> None:
+        if self._jsonl is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 def write_arguments(path_dir: str, arguments: Mapping, filename: str = "arguments.txt") -> None:
     """Dump the resolved run configuration, one `key: value` line each."""
+    if not is_main_process():
+        return
     os.makedirs(path_dir, exist_ok=True)
     with open(os.path.join(path_dir, filename), "w") as f:
         for k in sorted(arguments):

@@ -37,7 +37,7 @@ from diffusion_e2e_ft_tpu.pipelines import loading as jloading
 from diffusion_e2e_ft_tpu.pipelines.geowizard import GeoWizardOutput as JGeoWizardOutput
 from diffusion_e2e_ft_tpu.pipelines.geowizard import domain_one_hot as j_one_hot
 from diffusion_e2e_ft_tpu.pipelines.geowizard import switcher_embedding as j_switcher
-from diffusion_e2e_ft_tpu_torch import kernels
+from diffusion_e2e_ft_tpu_torch import kernels, parallel
 from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as tfa
 from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
 from diffusion_e2e_ft_tpu_torch.models import clip as tclip
@@ -209,7 +209,9 @@ def test_unported_options_raise(monkeypatch, pipes):
     """The options that raised before slice C now run and match the JAX
     package: an ensemble (of zeros-noise members, identical draws in both)
     with its uncertainty, and a gaussian-noise member (the JAX draw fed to
-    the port). The multi-chip mesh still raises, naming slice F."""
+    the port). Since slice F the multi-device mesh runs too: the ensemble on
+    [cpu, cpu] (one member on a replica of its own, as a second card holds)
+    is the no-mesh one, bit for bit."""
     jp, tp = pipes
     image = np.random.default_rng(15).integers(0, 256, (H, W, 3), dtype=np.uint8)
     kw = dict(processing_res=0, domain="indoor", color_map=None, seed=0)
@@ -217,13 +219,18 @@ def test_unported_options_raise(monkeypatch, pipes):
     np.testing.assert_allclose(got.depth_np, want.depth_np, atol=ENSEMBLE_DRIFT, rtol=0)
     np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)
     assert got.uncertainty.shape == want.uncertainty.shape == (H, W)
+    try:
+        tp.with_mesh(parallel.make_mesh(devices=["cpu", "cpu"]))._replicas[1] = tp._replica_on(torch.device("cpu"))
+        meshed = tp(image, ensemble_size=2, batch_size=2, **kw)
+    finally:
+        tp.with_mesh(None)
+    for field in ("depth_np", "normal_np", "uncertainty"):
+        np.testing.assert_array_equal(getattr(meshed, field), getattr(got, field), err_msg=field)
     want = jp(image, noise="gaussian", **kw)
     feed_draws(monkeypatch, jax_member_latents("gaussian", 0, 1, LATENT))
     got = tp(image, noise="gaussian", **kw)
     np.testing.assert_allclose(got.depth_np, want.depth_np, atol=1e-3, rtol=0)
     np.testing.assert_allclose(got.normal_np, want.normal_np, atol=1e-3, rtol=0)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tp.with_mesh(None)
 
 
 def test_multi_step_device_body_matches(pipes, rgb):

@@ -74,6 +74,9 @@ def test_port_modules_listed():
         "diffusion_e2e_ft_tpu_torch.tools.make_splits",
         "diffusion_e2e_ft_tpu_torch.cli.gen_vkitti_normals",
         "diffusion_e2e_ft_tpu_torch.cli.preprocess_hypersim",
+        "diffusion_e2e_ft_tpu_torch.parallel",
+        "diffusion_e2e_ft_tpu_torch.parallel.mesh",
+        "diffusion_e2e_ft_tpu_torch.parallel.sharding",
     ):
         assert expected in mods
 

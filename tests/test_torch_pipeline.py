@@ -37,6 +37,7 @@ from diffusion_e2e_ft_tpu.ops import scheduler as jsched
 from diffusion_e2e_ft_tpu.pipelines import loading as jloading
 from diffusion_e2e_ft_tpu.pipelines.marigold import MarigoldOutput as JMarigoldOutput
 from diffusion_e2e_ft_tpu.pipelines.marigold import MarigoldPipeline as JMarigoldPipeline
+from diffusion_e2e_ft_tpu_torch import parallel
 from diffusion_e2e_ft_tpu_torch.cli.serve import PipelineService, serve
 from diffusion_e2e_ft_tpu_torch.pipelines import loading as tloading
 from diffusion_e2e_ft_tpu_torch.ops import ensemble as tens
@@ -142,10 +143,29 @@ def test_output_fields_match_jax():
     assert names == ["depth_np", "depth_colored", "uncertainty", "normal_np", "normal_colored"]
 
 
-def test_with_mesh_raises_naming_slice_f(pipes):
+def test_with_mesh_raises_naming_slice_f(pipes, image, monkeypatch):
+    """`with_mesh` runs since slice F: on [cpu, cpu] (one member on a replica
+    of its own, as a second card holds) a
+    seeded two-member ensemble's members are the no-mesh ones, bit for bit
+    (their BFGS alignment, the same function of the same members, is held in
+    `test_call_ensemble_matches`; a mean stands in for it here). What still
+    raises is the FSDP axis, naming slice F2."""
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="slice F"):
+    members = []
+    monkeypatch.setattr(tens, "ensemble_depths", lambda preds, **kw: (members.append(preds) or preds.mean(0),
+                                                                       preds.std(0)))
+    kw = dict(ensemble_size=2, processing_res=0, noise="gaussian", seed=3, color_map=None)
+    want = tp(image, batch_size=1, **kw)
+    try:
+        tp.with_mesh(parallel.make_mesh(devices=["cpu", "cpu"]))._replicas[1] = tp._replica_on(torch.device("cpu"))
+        got = tp(image, batch_size=2, **kw)
+    finally:
         tp.with_mesh(None)
+    assert len(members) == 2 and torch.equal(members[0], members[1])
+    np.testing.assert_array_equal(got.depth_np, want.depth_np)
+    np.testing.assert_array_equal(got.uncertainty, want.uncertainty)
+    with pytest.raises(NotImplementedError, match="slice F2"):
+        parallel.make_train_mesh(devices=["cpu", "cpu"], fsdp=2)
 
 
 def test_unported_options_raise(monkeypatch, pipes, image):

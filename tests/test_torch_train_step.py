@@ -5,7 +5,8 @@ loss and every gradient leaf (depth and normals, with and without UNet
 checkpointing; gaussian noise), the parameters and EMA after two optimizer steps with K=1 and
 K=2 micro-steps (optax's clip, AdamW and MultiSteps semantics), the
 all-invalid mask, `fused_vae_kernels` on the CPU (against the plain path and
-against the JAX trainer's fused VAE), and the options the port raises on.
+against the JAX trainer's fused VAE), and the config check (slice D3's
+options run: `tests/test_torch_trainer_options.py`).
 
 Models are cut to two UNet levels and two VAE levels so the JAX side's jit
 compiles stay short. Tolerances: the loss 1e-5 relative, each gradient leaf
@@ -217,8 +218,8 @@ def test_trainer_leaves_callers_vae_unchanged(weights):
     [
         (dict(noise_type="gaussian"), "cpu", None, None),  # ported with the trainers' noise: no error
         (dict(noise_type="pyramid"), "cpu", None, None),
-        (dict(adam_mu_dtype="bfloat16"), "cpu", NotImplementedError, "slice D3"),
-        (dict(remat_policy="dots"), "cpu", NotImplementedError, "remat_policy=None"),
+        (dict(adam_mu_dtype="bfloat16"), "cpu", None, None),  # slice D3 is ported: no error
+        (dict(remat_policy="dots"), "cpu", None, None),
         (dict(modality="joint"), "cpu", ValueError, "GeoWizardTrainer"),  # the joint trainer's modality
         (dict(fused_vae_kernels=True), "cuda", None, None),  # slice D2 is ported: no error
         (dict(modality="segmentation"), "cpu", ValueError, "Unknown modality"),

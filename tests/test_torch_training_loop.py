@@ -193,11 +193,18 @@ def test_cli_train_end_to_end(tmp_path, base_checkpoint):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-# --modality joint is ported (tests/test_torch_geowizard_trainer.py): it now reaches the next unported option
-@pytest.mark.parametrize("argv,match", [(["--modality", "joint", "--num_devices", "2"], "slice F"),
-                                        (["--num_devices", "2"], "slice F")])
-def test_cli_unported_options_raise(argv, match):
+# --num_devices is ported (slice F): the CLI resolves the ranks it starts, CPU ranks here; more than the host
+# can take raise (`tests/test_torch_parallel.py` trains two ranks end to end)
+@pytest.mark.parametrize("argv,world", [(["--modality", "joint", "--num_devices", "2"], 2),
+                                        (["--num_devices", "2"], 2)], ids=["argv0-slice F", "argv1-slice F"])
+def test_cli_unported_options_raise(argv, world):
     from diffusion_e2e_ft_tpu_torch.cli import train as train_cli
 
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(["--pretrained_model_name_or_path", "unused", *argv])
+    args = train_cli.build_parser().parse_args(["--pretrained_model_name_or_path", "unused", "--device", "cpu",
+                                                *argv])
+    assert train_cli.data_parallel_world(args) == world
+    args.num_devices = None  # every visible device of the kind: the one CPU
+    assert train_cli.data_parallel_world(args) == 1
+    args.num_devices = (os.cpu_count() or 1) + 1
+    with pytest.raises(ValueError, match="num_devices"):
+        train_cli.data_parallel_world(args)
