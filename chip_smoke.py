@@ -178,7 +178,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reference's within `DP_BOUNDS`, then bf16 SD2 and GeoWizard joint steps on
    their rows, with ms/step, peak memory a rank, `step_launches(15)` a step
    and every kernel shape one that phases 3, 3c, 4 and 4b hold (phases 4 and
-   4b include the shapes of one row a rank).
+   4b include the shapes of one row a rank);
+19. slices F2 and G, after phase 18a in processes of its own: (a) two gloo
+   ranks on cuda:0 as mesh (data 1, fsdp 2), each holding both rows of the
+   480x640 global batch and half of every state leaf of at least 2^18
+   elements (`shard_state`): the bf16 SD2 and GeoWizard joint steps, with
+   ms/step and the parameters' all-gather's ms of it, the state's bytes a
+   rank against the rule's count (5.23 GB of SD2's fp32 masters and
+   moments), what the UNet holds between steps (no sharded tensor), the
+   peak a rank against phase 18a's one-process run on the same rows,
+   `step_launches(15)` a step and every kernel shape one that phases 3, 3c,
+   4 and 4b hold; (b) the fp32 step from sharded state against 18a's
+   reference process, within `DP_BOUNDS`; (c) that state's checkpoint,
+   saved by the group, restored into zeroed shards (equal to the bit) and
+   one more step; then (d) `tools/export_roundtrip` at full width on the
+   card, fp32 and bf16, at a 480x640 probe (kernel 1 at the NYU frames'
+   shapes): every row zero.
 
 Phase 3c runs the forward kernel at every shape phase 15's requests send
 it, worked out from their sizes: the baseline's chunk of 10 at 480x640
@@ -220,6 +235,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -3125,6 +3141,249 @@ def phase_trainer_options(unet, vae, empty) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: slices F2 and G, FSDP ranks and the export round trip
+# ---------------------------------------------------------------------------
+
+# (a)-(c) two gloo ranks on cuda:0 as mesh (data 1, fsdp 2): both hold the global batch's two rows, each
+# half of every leaf of at least 2^18 elements (the parameters and Adam's moments)
+FSDP_SIZE = 2
+# (d) the export round trip's probe: the UNet's and the VAE's attention at the NYU frames' shapes (phase 3c)
+EXPORT_HW = (480, 640)
+
+
+def fsdp_rule_bytes(shapes: dict, trainer) -> int:
+    """The bytes a rank's state holds by the rule: each parameter's elements
+    a rank (half of a sharded one) times the bytes of its master, Adam's two
+    moments, and the accumulator and the EMA where the config keeps them."""
+    from diffusion_e2e_ft_tpu_torch.parallel import param_spec
+
+    c = trainer.config
+    mu = 2 if c.adam_mu_dtype in ("bfloat16", "float16") else 4
+    per_element = 4 + mu + 4 + 4 * (c.gradient_accumulation_steps > 1) + 4 * c.use_ema
+    elements = sum(math.prod(s) // (FSDP_SIZE if param_spec(tuple(s), FSDP_SIZE) is not None else 1)
+                   for s in shapes.values())
+    return elements * per_element
+
+
+def fsdp_bf16_steps(trainer, batches: list, dp, label: str, shapes: dict) -> dict:
+    """DP_STEPS bf16 steps of this fsdp rank on its rows of `batches`, from a
+    `shard_state` of the trainer's state and reset launch counts: ms a step
+    and the gather's ms of it (host clock, synchronised), peak memory, the
+    state's bytes against the rule's, what the UNet holds between steps,
+    losses, launches and the kernel shapes."""
+    from diffusion_e2e_ft_tpu_torch.parallel import shard_state
+    from diffusion_e2e_ft_tpu_torch.training.trainer import state_tensors
+
+    trainer.place_frozen(dp)
+    state = shard_state(trainer.init_state(), dp)
+    gather, gather_ms = dp.gather_shards, []
+
+    def timed_gather(shards, axes, *args):  # the parameters' all-gather share of the step, host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(shards, axes, *args)
+        torch.cuda.synchronize()
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dp.gather_shards = timed_gather
+    generator = torch.Generator(device="cuda").manual_seed(DP_PARITY["seed"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's run starts here
+    try:
+        with recorded_launches() as seen:
+            state, ms, per_step, losses = timed_steps(trainer, state, [dp.shard_batch(b) for b in batches], generator)
+    finally:
+        dp.gather_shards = gather
+    launches = read_launches()  # ... and ends here
+    stored = sum(t.numel() * t.element_size() for _, t in state_tensors(state))
+    held = sum(p.numel() for n, p in trainer.unet.named_parameters() if n in state.sharding.axes)
+    out = {"ms": ms, "median_ms": statistics.median(ms[1:]), "gather_ms": statistics.median(gather_ms[1:]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses, "per_step": per_step,
+           "launches": launches, "shapes": [list(x) for x in sorted({(name, shape[:4]) for name, shape in seen})],
+           "state_bytes": stored, "rule_bytes": fsdp_rule_bytes(shapes, trainer), "held_between_steps": held,
+           "sharded": len(state.sharding.axes), "leaves": len(state.params)}
+    print(f"[fsdp] {label} rank {dp.rank} (data {dp.data_index} of {dp.data_size}, fsdp {dp.fsdp_index} of "
+          f"{dp.fsdp_size}): {len(ms)} steps of {len(batches[0]['rgb'])} rows, ms/step {[round(x, 1) for x in ms]} "
+          f"(median after the first {out['median_ms']:.1f}, of it the all-gather {out['gather_ms']:.1f}), peak "
+          f"{out['peak_gib']:.3f} GiB, state {stored / 1e9:.4f} GB (the rule's {out['rule_bytes'] / 1e9:.4f}; "
+          f"{out['sharded']} of {out['leaves']} leaves sharded), losses {[round(x, 6) for x in losses]}, "
+          f"launches a step {per_step[-1]}", flush=True)
+    return out
+
+
+def fsdp_checkpoint(trainer, state, batch: dict, dp, work: str) -> dict:
+    """Phase 19c on a rank: the group saves the sharded state (every rank
+    gathers, rank 0 takes each bucket to the host and writes the one-process
+    file), the state's tensors are zeroed and restored from the file, must
+    equal a host copy of them to the bit, and take one more step. The peak
+    of the save and restore is read on its own."""
+    from diffusion_e2e_ft_tpu_torch.training import checkpoints as ckpt
+    from diffusion_e2e_ft_tpu_torch.training.trainer import state_tensors
+
+    before = [t.detach().cpu() for _, t in state_tensors(state)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(os.path.join(work, "fsdp-checkpoints"), state.step, state)
+    dp.barrier()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        for _, t in state_tensors(state):
+            t.zero_()
+    state = ckpt.restore_checkpoint(path, state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    equal = all(torch.equal(t.detach().cpu(), b) for (_, t), b in zip(state_tensors(state), before))
+    del before
+    state, metrics = trainer.train_step(state, batch, torch.Generator(device="cuda").manual_seed(DP_PARITY["seed"] + 1))
+    return {"equal": equal, "save_s": t1 - t0, "restore_s": t2 - t1, "step": state.step, "loss": float(metrics["loss"]),
+            "file_gb": os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e9, "peak_gib": peak}
+
+
+def fsdp_rank(rank: int, work: str) -> None:
+    """Phase 19's ranks on cuda:0 over gloo, mesh (data 1, fsdp 2): (b) the
+    fp32 step on the global batch of phase 18a from sharded state, against
+    the reference process's parameters; (c) its checkpoint; (a) the bf16 SD2
+    and GeoWizard steps."""
+    from diffusion_e2e_ft_tpu_torch.parallel import init_data_parallel, shard_state
+    from diffusion_e2e_ft_tpu_torch.training.trainer import gather_tensors
+
+    dp_setup()
+    dp = init_data_parallel(rank, FSDP_SIZE, "cuda:0", init_file=os.path.join(work, "fsdp-rendezvous"),
+                            backend="gloo", fsdp=FSDP_SIZE)
+    out: dict = {}
+    try:
+        weights = torch.load(os.path.join(work, "sd2.pt"), weights_only=False, mmap=True)
+        trainer = dp_sd2_trainer(weights, **DP_PARITY)
+        trainer.place_frozen(dp)
+        state = shard_state(trainer.init_state(), dp)
+        batch = dp.shard_batch(dp_batch())
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = trainer.train_step(state, batch, torch.Generator(device="cuda").manual_seed(DP_PARITY["seed"]))
+        out.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   step_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        reference = torch.load(os.path.join(work, "reference.pt"), mmap=True)
+        full = gather_tensors(state.params, state.sharding)
+        errs = {n: float((p.detach() - reference[n].to(p.device)).abs().max()) for n, p in full.items()}
+        update = max(float((reference[n] - weights["unet"][n]).abs().max()) for n in errs)  # the reference's step
+        out["update_err"], out["worst_param"] = max(errs.values()) / update, max(errs, key=errs.get)
+        out["params"], out["largest_update"] = len(errs), update
+        del full, reference
+        out["checkpoint"] = fsdp_checkpoint(trainer, state, batch, dp, work)
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(19)  # phase 18a's batches
+        batches = [synthetic_batch(rng, 2, 480, 640, "depth", invalid=0.0) for _ in range(DP_STEPS)]
+        trainer = dp_sd2_trainer(weights, torch.bfloat16, **dict(DP_PARITY, noise_type="zeros"))
+        out["sd2"] = fsdp_bf16_steps(trainer, batches, dp, "SD2 bf16", {n: t.shape for n, t in weights["unet"].items()})
+        del weights, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(20)
+        geo_batches = [joint_batch(rng, 2, 480, 640) for _ in range(DP_STEPS)]
+        geo = torch.load(os.path.join(work, "geowizard.pt"), weights_only=False, mmap=True)
+        out["geowizard"] = fsdp_bf16_steps(dp_geo_trainer(geo), geo_batches, dp, "GeoWizard joint bf16",
+                                           {n: t.shape for n, t in geo["unet"].items()})
+    finally:
+        dp.close()
+    with open(os.path.join(work, f"fsdp{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_fsdp(work: str) -> dict:
+    """Phase 19 (a)-(c), slice F2's main path, after phase 18a (its reference
+    process's parameters and 1-process NCCL run are the one-process side):
+    two FSDP ranks spawned on cuda:0. Returns the kernel launches of their
+    bf16 runs (both ranks, SD2 and GeoWizard)."""
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(fsdp_rank, args=(work,), nprocs=FSDP_SIZE)
+    seconds = time.perf_counter() - t0
+    ref = json.load(open(os.path.join(work, "reference.json")))
+    ranks = [json.load(open(os.path.join(work, f"fsdp{r}.json"))) for r in range(FSDP_SIZE)]
+    for r, got in enumerate(ranks):
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+        print(f"[fsdp] fp32 480x640, 2 rows, pyramid noise: rank {r} of (data 1, fsdp 2) loss {got['loss']:.8f} vs one "
+              f"process {ref['loss']:.8f} (rel {rel['loss']:.2e}, bound {DP_BOUNDS['loss']}), grad norm "
+              f"{got['grad_norm']:.6e} vs {ref['grad_norm']:.6e} (rel {rel['grad_norm']:.2e}, bound "
+              f"{DP_BOUNDS['grad_norm']}), every one of {got['params']} gathered parameters after the step max|d| / the "
+              f"largest update ({got['largest_update']:.3e}) {got['update_err']:.2e} ({got['worst_param']}; bound "
+              f"{DP_BOUNDS['update']})", flush=True)
+        for k in ("loss", "grad_norm"):
+            check(rel[k] <= DP_BOUNDS[k], f"fsdp rank {r}: {k} {got[k]} vs one process {ref[k]}")
+        check(got["update_err"] <= DP_BOUNDS["update"], f"fsdp rank {r}: parameter {got['worst_param']} off by "
+              f"{got['update_err']} of the largest update")
+        c = got["checkpoint"]
+        print(f"[fsdp] checkpoint rank {r}: {c['file_gb']:.3f} GB written (gather + save {c['save_s']:.1f} s), "
+              f"restored into zeroed shards in {c['restore_s']:.1f} s, equal to the bit: {c['equal']}; peak of the "
+              f"save and restore {c['peak_gib']:.3f} GiB vs the fp32 step's {got['step_peak_gib']:.3f} GiB; one more "
+              f"step: step {c['step']}, loss {c['loss']:.6f}", flush=True)
+        check(c["equal"] and c["step"] == 2 and np.isfinite(c["loss"]), f"fsdp rank {r}: checkpoint round trip {c}")
+        check(c["peak_gib"] < got["step_peak_gib"], f"fsdp rank {r}: the checkpoint's peak {c['peak_gib']} GiB is "
+              f"not below the step's {got['step_peak_gib']} GiB")
+    check(ranks[0]["loss"] == ranks[1]["loss"] and ranks[0]["grad_norm"] == ranks[1]["grad_norm"],
+          "the fsdp ranks' loss or grad norm differ")
+    held = held_shapes()
+    total: dict = {}
+    for model in ("sd2", "geowizard"):
+        for r, got in enumerate(ranks):
+            run = got[model]
+            label = f"fsdp rank {r} {model}"
+            check(np.isfinite(run["losses"]).all(), f"{label}: losses {run['losses']}")
+            check(all(s == step_launches(UNET_SITES_480x640) for s in run["per_step"]),
+                  f"{label}: launches a step {run['per_step']}, expected step_launches(15)")
+            for name, shape in run["shapes"]:
+                check(tuple(shape) in held[name], f"{label}: {name} at {shape}, a shape no phase holds against the "
+                      "plain version")
+            check(run["state_bytes"] == run["rule_bytes"], f"{label}: state {run['state_bytes']} bytes, the rule's "
+                  f"{run['rule_bytes']}")
+            check(run["held_between_steps"] == 0, f"{label}: the UNet holds {run['held_between_steps']} elements of "
+                  "sharded parameters between steps")
+            for name, n in run["launches"].items():
+                total[name] = total.get(name, 0) + n
+        check(ranks[0][model]["losses"] == ranks[1][model]["losses"], f"{model}: the fsdp ranks' losses differ")
+        print(f"[fsdp] bf16 {model} (data 1, fsdp 2) x 2 rows (gloo on one card): median ms/step "
+              f"{[round(r[model]['median_ms'], 1) for r in ranks]} (the all-gather "
+              f"{[round(r[model]['gather_ms'], 1) for r in ranks]}), peak GiB a rank "
+              f"{[round(r[model]['peak_gib'], 3) for r in ranks]}, state GB a rank "
+              f"{[round(r[model]['state_bytes'] / 1e9, 4) for r in ranks]} (the rule's "
+              f"{ranks[0][model]['rule_bytes'] / 1e9:.4f})", flush=True)
+    peak = max(r["sd2"]["peak_gib"] for r in ranks)
+    print(f"[fsdp] SD2 peak a rank {peak:.3f} GiB vs one process on the same 2 rows (phase 18a's 1-rank NCCL run) "
+          f"{ref['nccl']['peak_gib']:.3f} GiB; the ranks took {seconds:.1f} s", flush=True)
+    check(peak < ref["nccl"]["peak_gib"], f"an fsdp rank's peak {peak} GiB is not below one process's")
+    return total
+
+
+def phase_export_roundtrip(work: str) -> int:
+    """Phase 19d, slice G: `tools/export_roundtrip` at full width on cuda:0,
+    fp32 and bf16, at a 480x640 probe; every row must be 0. Returns kernel
+    1's launches (the UNet, the decode and the single-step depth of both
+    pipelines), at shapes phase 3c holds."""
+    from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
+    from diffusion_e2e_ft_tpu_torch.tools import export_roundtrip
+
+    reset_launches()
+    with recorded_shapes(fa) as shapes:
+        ok, _, report = export_roundtrip.run(None, device="cuda", dtypes=("float32", "bfloat16"), image_hw=EXPORT_HW,
+                                             workdir=work)
+    launches = read_launches()["flash_attention_fwd"]
+    for line in report.splitlines():
+        if line:
+            print(f"[export] {line}", flush=True)
+    print(f"[export] kernel 1 launches {launches} at {sorted(shapes)}", flush=True)
+    check(ok, "the export round trip is not zero-diff")
+    check(shapes <= held_shapes()["flash_attention_fwd"], f"export round trip: kernel 1 at {sorted(shapes)}, not all held")
+    return launches
+
+
 def save_weights(path: str, **parts) -> None:
     """Modules' configs and weights (on the CPU, `dtype` if given) for phase 18a's processes."""
     dtype = parts.pop("dtype", None)
@@ -3243,7 +3502,9 @@ def run(dp_work: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(dp_work)  # slice F's main path, in processes of its own
-    for name, n in [*geo_train.items(), *data_path.items(), *dp_launches.items()]:
+    fsdp_launches = phase_fsdp(dp_work)  # slice F2's main path, after 18a's reference
+    launches["flash_attention_fwd"] += phase_export_roundtrip(dp_work)  # slice G
+    for name, n in [*geo_train.items(), *data_path.items(), *dp_launches.items(), *fsdp_launches.items()]:
         launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")
 

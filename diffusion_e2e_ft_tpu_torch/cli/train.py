@@ -135,7 +135,7 @@ def train(args, rank: int = 0, world: int = 1, local_rank: int = 0, init_file=No
     from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
     from diffusion_e2e_ft_tpu_torch.training.geowizard import GeoWizardTrainer
     from diffusion_e2e_ft_tpu_torch.training.loop import run_training
-    from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer
+    from diffusion_e2e_ft_tpu_torch.training.trainer import E2ETrainer, gather_tensors
 
     dp, device = None, torch.device(args.device)
     if world > 1 or init_file is None and _torchrun_rank() is not None:
@@ -208,7 +208,8 @@ def train(args, rank: int = 0, world: int = 1, local_rank: int = 0, init_file=No
     state = run_training(trainer, trainer.init_state(), make_epoch_iter, resume_from=args.resume_from_checkpoint)
 
     # --- final export (trailing spacing baked in, the frozen tower copied in), rank 0
-    final = state.ema_params if state.ema_params is not None else state.params
+    # the exported tree's full tensors, on the host, of a sharded state (a collective), else the tree itself
+    final = gather_tensors(state.ema_params if state.ema_params is not None else state.params, state.sharding, "cpu")
     export_dir = os.path.join(args.output_dir, "export")
     ckpt.export_hf_pipeline(
         export_dir, unet.config, final, vae.config, vae.state_dict(), sched_cfg, source_checkpoint=path,

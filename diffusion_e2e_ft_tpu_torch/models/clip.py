@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffusion_e2e_ft_tpu_torch.models.layers import LayerNormFP32
+
 BOS_TOKEN_ID = 49406
 EOS_TOKEN_ID = 49407
 
@@ -64,12 +66,6 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "gelu":
         return F.gelu(x)
     raise ValueError(f"Unknown activation: {name}")
-
-
-def _layer_norm_fp32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(
-        x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps
-    ).to(x.dtype)
 
 
 class _CLIPAttention(nn.Module):
@@ -114,14 +110,14 @@ class _CLIPMLP(nn.Module):
 class _CLIPLayer(nn.Module):
     def __init__(self, c, causal: bool = True):
         super().__init__()
-        self.layer_norm1 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.layer_norm1 = LayerNormFP32(c.hidden_size, eps=c.layer_norm_eps)
         self.self_attn = _CLIPAttention(c.hidden_size, c.num_heads, causal)
-        self.layer_norm2 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.layer_norm2 = LayerNormFP32(c.hidden_size, eps=c.layer_norm_eps)
         self.mlp = _CLIPMLP(c.hidden_size, c.intermediate_size, c.hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(_layer_norm_fp32(self.layer_norm1, x))
-        return x + self.mlp(_layer_norm_fp32(self.layer_norm2, x))
+        x = x + self.self_attn(self.layer_norm1(x))
+        return x + self.mlp(self.layer_norm2(x))
 
 
 class _Embeddings(nn.Module):
@@ -142,7 +138,7 @@ class _TextTransformer(nn.Module):
         super().__init__()
         self.embeddings = _Embeddings(c)
         self.encoder = _Encoder(c)
-        self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.final_layer_norm = LayerNormFP32(c.hidden_size, eps=c.layer_norm_eps)
 
 
 class CLIPTextModel(nn.Module):
@@ -160,10 +156,7 @@ class CLIPTextModel(nn.Module):
         x = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding(pos)
         for layer in tm.encoder.layers:
             x = layer(x)
-        return F.layer_norm(
-            x.float(), tm.final_layer_norm.normalized_shape, tm.final_layer_norm.weight.float(),
-            tm.final_layer_norm.bias.float(), tm.final_layer_norm.eps,
-        )
+        return tm.final_layer_norm(x.float())
 
 
 class _VisionEmbeddings(nn.Module):
@@ -178,9 +171,9 @@ class _VisionTransformer(nn.Module):
     def __init__(self, c: CLIPVisionConfig):
         super().__init__()
         self.embeddings = _VisionEmbeddings(c)
-        self.pre_layrnorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)  # (sic), the HF name
+        self.pre_layrnorm = LayerNormFP32(c.hidden_size, eps=c.layer_norm_eps)  # (sic), the HF name
         self.encoder = _Encoder(c, causal=False)
-        self.post_layernorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.post_layernorm = LayerNormFP32(c.hidden_size, eps=c.layer_norm_eps)
 
 
 class CLIPVisionModelWithProjection(nn.Module):
@@ -202,10 +195,10 @@ class CLIPVisionModelWithProjection(nn.Module):
         cls = emb.class_embedding.to(patches.dtype).expand(b, 1, -1)
         x = torch.cat([cls, patches], dim=1)
         x = x + emb.position_embedding(torch.arange(x.shape[1], device=x.device))[None]
-        x = _layer_norm_fp32(vm.pre_layrnorm, x)
+        x = vm.pre_layrnorm(x)
         for layer in vm.encoder.layers:
             x = layer(x)
-        pooled = _layer_norm_fp32(vm.post_layernorm, x[:, 0])
+        pooled = vm.post_layernorm(x[:, 0])
         return self.visual_projection(pooled)
 
 

@@ -7,7 +7,6 @@ the module's dtype, as in the JAX package (`diffusion_e2e_ft_tpu/models/layers.p
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -240,10 +239,24 @@ class FeedForward(nn.Module):
         return self.net[2](self.net[0](x))
 
 
-def _layer_norm_fp32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(
-        x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps
-    ).to(x.dtype)
+class LayerNormFP32(nn.LayerNorm):
+    """LayerNorm with fp32 statistics, as flax's: the input cast up, the output back."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps
+        ).to(x.dtype)
+
+
+class TokenConv1x1(nn.Conv2d):
+    """A 1x1 conv (HF's [out, in, 1, 1] weight) on [B, L, in] tokens, as the
+    linear map it is."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, kernel_size=1)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.linear(tokens, self.weight.flatten(1), self.bias)
 
 
 class TransformerBlock(nn.Module):
@@ -251,17 +264,17 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int, joint_attention: bool = False):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNormFP32(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, num_heads, head_dim, joint=joint_attention)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNormFP32(dim, eps=1e-5)
         self.attn2 = CrossAttention(dim, num_heads, head_dim, context_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNormFP32(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(_layer_norm_fp32(self.norm1, x))
-        x = x + self.attn2(_layer_norm_fp32(self.norm2, x), context)
-        return x + self.ff(_layer_norm_fp32(self.norm3, x))
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
 
 
 class SpatialTransformer(nn.Module):
@@ -285,7 +298,7 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = num_heads * head_dim
         self.norm = GroupNormAct(groups, channels, eps=1e-6, silu=False)
-        proj = nn.Linear if use_linear_projection else functools.partial(nn.Conv2d, kernel_size=1)
+        proj = nn.Linear if use_linear_projection else TokenConv1x1
         self.proj_in = proj(channels, inner)
         self.transformer_blocks = nn.ModuleList(
             [TransformerBlock(inner, num_heads, head_dim, context_dim, joint_attention) for _ in range(depth)]
@@ -295,15 +308,10 @@ class SpatialTransformer(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         hidden = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        hidden = _project(self.proj_in, hidden)
+        hidden = self.proj_in(hidden)
         for block in self.transformer_blocks:
             hidden = block(hidden, context)
-        return _project(self.proj_out, hidden).reshape(b, h, w, c).permute(0, 3, 1, 2) + x
-
-
-def _project(proj: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    """A linear layer or a 1x1 conv ([out, in] or [out, in, 1, 1] weight) on [B, L, in] tokens."""
-    return F.linear(tokens, proj.weight.flatten(1), proj.bias)
+        return self.proj_out(hidden).reshape(b, h, w, c).permute(0, 3, 1, 2) + x
 
 
 class VAEAttention(nn.Module):

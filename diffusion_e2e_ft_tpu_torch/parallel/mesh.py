@@ -36,11 +36,14 @@ def canonical_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Local devices in mesh order; with several axes the first takes every
-    device and the others are of size 1, as `make_mesh` lays them out."""
+    """Local devices in mesh order: the grid of `axis_sizes` flattened with
+    the last axis varying fastest, as numpy reshapes the JAX mesh's device
+    list. Without sizes the first axis takes every device and the others are
+    of size 1, as `make_mesh` lays them out."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("data",)
+    axis_sizes: Optional[Tuple[int, ...]] = None
 
     @property
     def size(self) -> int:
@@ -48,7 +51,13 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
+        if self.axis_sizes is not None:
+            return dict(zip(self.axis_names, self.axis_sizes))
         return {name: (self.size if i == 0 else 1) for i, name in enumerate(self.axis_names)}
+
+    def position(self, index: int) -> Dict[str, int]:
+        """The grid coordinates of mesh position `index` (a rank), by axis."""
+        return dict(zip(self.axis_names, (int(i) for i in np.unravel_index(index, tuple(self.shape.values())))))
 
 
 def visible_devices(device_type: str = "cuda") -> List[torch.device]:
@@ -78,12 +87,17 @@ def make_mesh(
     return Mesh(tuple(devs), tuple(axis_names))
 
 
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+def _tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """`fn` over the leaves of `tree` (dataclasses, dicts, lists, tuples; None
+    stays None), with the matching leaves of `rest`."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+                                            for f in dataclasses.fields(tree) if f.init})
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return None if tree is None else fn(tree)
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
 
 
 def row_block(n_rows: int, index: int, parts: int) -> slice:
@@ -102,13 +116,15 @@ def take_rows(x, index: int, parts: int):
 
 
 def shard_batch(batch: Any, mesh: Mesh, axis: str = "data") -> List[Any]:
-    """One tree per mesh device: batch-shaped leaves split over the devices
-    in order, the others replicated (the JAX `shard_batch` rule)."""
+    """One tree per mesh device: batch-shaped leaves split over `axis` in
+    order (a device takes the block of its coordinate on it, so the devices
+    of the other axes hold the same rows), the others replicated (the JAX
+    `shard_batch` rule)."""
     n = mesh.shape.get(axis, mesh.size)
 
     def part(x, i: int, device: torch.device) -> torch.Tensor:
         x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-        return take_rows(x, i, n).to(device)
+        return take_rows(x, mesh.position(i).get(axis, i), n).to(device)
 
     return [_tree_map(lambda x: part(x, i, d), batch) for i, d in enumerate(mesh.devices)]
 

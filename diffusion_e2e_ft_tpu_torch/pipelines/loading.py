@@ -188,6 +188,21 @@ def text_config_from_hf(cfg: Dict[str, Any]) -> clip_models.CLIPTextConfig:
     )
 
 
+def text_config_to_hf(c: clip_models.CLIPTextConfig) -> Dict[str, Any]:
+    return {
+        "architectures": ["CLIPTextModel"],
+        "model_type": "clip_text_model",
+        "vocab_size": c.vocab_size,
+        "hidden_size": c.hidden_size,
+        "num_hidden_layers": c.num_layers,
+        "num_attention_heads": c.num_heads,
+        "intermediate_size": c.intermediate_size,
+        "max_position_embeddings": c.max_position_embeddings,
+        "hidden_act": c.hidden_act,
+        "layer_norm_eps": c.layer_norm_eps,
+    }
+
+
 def vision_config_from_hf(cfg: Dict[str, Any]) -> clip_models.CLIPVisionConfig:
     return clip_models.CLIPVisionConfig(
         hidden_size=cfg.get("hidden_size", 1024),
@@ -316,6 +331,15 @@ _MODEL_INDEX_CLASSES = {
 
 def _save_weights(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
     torch.save({k: v.detach().to("cpu", torch.float32).contiguous() for k, v in state_dict.items()}, path)
+
+
+def save_text_encoder(path: str, config: clip_models.CLIPTextConfig, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """A `text_encoder/` subfolder: config.json and fp32 `pytorch_model.bin`
+    in the transformers layout, which `compute_empty_text_embed` reads."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(text_config_to_hf(config), f, indent=2)
+    _save_weights(state_dict, os.path.join(path, "pytorch_model.bin"))
 
 
 def save_pipeline_dir(

@@ -9,7 +9,13 @@ scheduler config, as the JAX package's `export_hf_pipeline` writes it; an
 export from either package loads in both.
 
 In a data-parallel group only rank 0 writes (`save_checkpoint`,
-`export_hf_pipeline`); every rank reads on restore.
+`export_hf_pipeline`); every rank reads on restore. A sharded state (FSDP)
+is gathered bucket by bucket to rank 0's host before rank 0 writes it (every
+rank takes part in the gather, and no rank holds more than its shards and
+one bucket on the card), so the file is the one a single process writes,
+full tensors in the same layout; a sharded state
+restores the rank's blocks of the file's tensors, and a single process the
+whole file.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 
 from diffusion_e2e_ft_tpu_torch.parallel.sharding import is_main_process
-from diffusion_e2e_ft_tpu_torch.training.trainer import TrainState
+from diffusion_e2e_ft_tpu_torch.parallel.sharding import shard_of
+from diffusion_e2e_ft_tpu_torch.training.trainer import TrainState, gather_state
 
 _STEP_RE = re.compile(r"checkpoint-(\d+)$")
 STATE_FILE = "train_state.pt"
@@ -52,15 +59,20 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 
 def save_checkpoint(output_dir: str, step: int, state: TrainState, total_limit: Optional[int] = None) -> str:
     """Save the full TrainState; rotate old checkpoints beyond total_limit.
-    Returns the checkpoint's path (written by rank 0 only)."""
+    Returns the checkpoint's path (written by rank 0 only; every rank of a
+    sharded state calls it, for the gather, which rank 0 takes to the host
+    one bucket at a time and the others drop)."""
     path = _ckpt_path(output_dir, step)
-    if not is_main_process():
+    main = is_main_process()
+    state = gather_state(state, "cpu", keep=main)
+    if not main:
         return path
     tmp = f"{path}.tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     # not dataclasses.asdict, which would deep-copy every tensor
-    torch.save({f.name: getattr(state, f.name) for f in dataclasses.fields(state)}, os.path.join(tmp, STATE_FILE))
+    torch.save({f.name: getattr(state, f.name) for f in dataclasses.fields(state) if f.name != "sharding"},
+               os.path.join(tmp, STATE_FILE))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)  # a reader never sees a half-written checkpoint
     if total_limit is not None:
@@ -80,18 +92,28 @@ def _copy_into(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint written by `save_checkpoint` into `state`'s tensors (in
-    place, so the UNet module holding them takes the saved weights)."""
-    saved = torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu", weights_only=True)
-    _copy_into(state.params, saved["params"], "params")
+    place, so the UNet module holding them takes the saved weights); a
+    sharded state takes the rank's block of each tensor it shards."""
+    saved = torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu", weights_only=True,
+                       mmap=True)
+    sh = state.sharding
+
+    def mine(tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if sh is None:
+            return dict(tree)
+        g = sh.group
+        return {n: shard_of(t, sh.axes[n], g.fsdp_index, g.fsdp_size) if n in sh.axes else t for n, t in tree.items()}
+
+    _copy_into(state.params, mine(saved["params"]), "params")
     opt: Dict = dict(saved["opt_state"])
     for key, value in state.opt_state.items():
         if isinstance(value, dict):
-            _copy_into(value, opt[key], f"optimizer {key}")
+            _copy_into(value, mine(opt[key]), f"optimizer {key}")
             opt[key] = value
     if (state.ema_params is None) != (saved["ema_params"] is None):
         raise ValueError("checkpoint and state disagree on use_ema")
     if state.ema_params is not None:
-        _copy_into(state.ema_params, saved["ema_params"], "ema params")
+        _copy_into(state.ema_params, mine(saved["ema_params"]), "ema params")
     return dataclasses.replace(state, step=saved["step"], micro_step=saved["micro_step"], opt_state=opt)
 
 
@@ -117,7 +139,8 @@ def export_hf_pipeline(
     With `source_checkpoint`, the frozen towers are copied in, so the export
     is self-contained: the text tower (+ tokenizer) for depth / normals runs,
     the image tower (+ feature extractor) for joint runs; the trained UNet
-    expects the real empty-prompt or image embedding."""
+    expects the real empty-prompt or image embedding. `unet_state` holds full
+    tensors: a sharded run passes those of `trainer.gather_tensors`."""
     from diffusion_e2e_ft_tpu_torch.pipelines import loading
 
     if not is_main_process():

@@ -23,7 +23,8 @@ attention.
   latent validity (doubled), over max(sum(mask) C, 1).
 
 A batch with no valid pixel has loss 0. In a data-parallel group (see
-`trainer.py`) both terms of the E2E loss, and the diffusion loss, divide by
+`trainer.py`; over its data axis, the frozen image tower replicated on every
+rank) both terms of the E2E loss, and the diffusion loss, divide by
 the global batch's counts, each term is NaN-guarded on its global value, and
 t and the noise are drawn for the global batch, the pair's rows taken from
 both halves. Batch leaves (numpy or torch): rgb
@@ -83,10 +84,10 @@ class GeoWizardTrainer(E2ETrainer):
     def _global_t(self, t: torch.Tensor) -> torch.Tensor:
         """The global batch's timesteps from this rank's (explicit ones; drawn
         ones are drawn for the global batch)."""
-        if self.dp is None or self.dp.world == 1:
+        if self.dp is None or self.dp.data_size == 1:
             return t
-        parts = [torch.zeros_like(t) for _ in range(self.dp.world)]
-        parts[self.dp.rank] = t
+        parts = [torch.zeros_like(t) for _ in range(self.dp.data_size)]
+        parts[self.dp.data_index] = t
         return self.dp.all_sum(torch.cat(parts))
 
     def loss(
@@ -110,7 +111,7 @@ class GeoWizardTrainer(E2ETrainer):
             context = torch.cat([embed, embed])
             class_vec = switcher_embedding(batch.get("domain", [1.0, 0.0, 0.0]), batch=b).to(self.device)
 
-            world = 1 if self.dp is None else self.dp.world
+            world = 1 if self.dp is None else self.dp.data_size
             if c.e2e:  # the single step: noise is the input at t = 999
                 t_all = torch.full((b * world,), self.scheduler_config.num_train_timesteps - 1, dtype=torch.long,
                                    device=self.device)

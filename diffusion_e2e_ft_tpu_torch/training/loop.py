@@ -14,7 +14,8 @@ Data parallelism: with the trainer in a group (`trainer.place_frozen`), every
 rank runs this loop over its own rows of each global batch. The generators
 are seeded alike on every rank, every rank restores the same checkpoint on
 resume and starts from rank 0's state, and only rank 0 writes the arguments,
-the logs and the checkpoints. `img_per_sec` counts the global batch.
+the logs and the checkpoints (every rank gathers a sharded state for
+them). `img_per_sec` counts the global batch.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def run_training(
     """Run until config.max_train_steps optimizer steps; returns the final state."""
     config = trainer.config
     out_dir = config.output_dir
-    world = 1 if trainer.dp is None else trainer.dp.world
+    world = 1 if trainer.dp is None else trainer.dp.data_size  # the ranks that read distinct rows
     write_arguments(out_dir, {"config": config.to_json()})
     logger = ScalarLogger(os.path.join(out_dir, "logs"))
 

@@ -45,6 +45,18 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([t.float() for t in tensors])))
 
 
+def sharded_global_norm(
+    shards: List[torch.Tensor], replicated: List[torch.Tensor], fsdp_sum: Callable[[torch.Tensor], torch.Tensor]
+) -> torch.Tensor:
+    """The global norm of tensors of which `shards` are this rank's blocks of
+    fsdp-sharded ones: the fsdp axis's sum of the shards' squares, plus the
+    replicated tensors' squares, counted once."""
+    squares = [fsdp_sum(global_norm(shards) ** 2)] if shards else []
+    if replicated:
+        squares.append(global_norm(replicated) ** 2)
+    return torch.stack(squares).sum().sqrt()
+
+
 def group_of(name: str) -> str:
     """The class-embedding group takes every parameter under a `class_embedding` module."""
     return "class_embedding" if "class_embedding" in name.split(".") else "base"
@@ -84,9 +96,12 @@ class OptaxAdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Mapping[str, torch.Tensor], state: Dict, params: Mapping[str, torch.Tensor]) -> bool:
+    def update(self, grads: Mapping[str, torch.Tensor], state: Dict, params: Mapping[str, torch.Tensor],
+               norm: Optional[Callable[[Mapping[str, torch.Tensor]], torch.Tensor]] = None) -> bool:
         """One micro-step: updates `params` and `state` in place. Returns whether
-        the parameters were updated (every micro-step when accumulate == 1)."""
+        the parameters were updated (every micro-step when accumulate == 1).
+        `norm` takes the clipping's global norm of a group's gradients by
+        name (default `global_norm`; a sharded state's is over the fsdp axis)."""
         if self.accumulate > 1:
             names = list(grads)
             acc = [state["acc"][n] for n in names]
@@ -96,14 +111,15 @@ class OptaxAdamW:
             if state["mini_step"] < self.accumulate - 1:
                 state["mini_step"] += 1
                 return False
-            self._apply(state["acc"], state, params)
+            self._apply(state["acc"], state, params, norm)
             torch._foreach_zero_(acc)
             state["mini_step"] = 0
             return True
-        self._apply(grads, state, params)
+        self._apply(grads, state, params, norm)
         return True
 
-    def _apply(self, grads: Mapping[str, torch.Tensor], state: Dict, params: Mapping[str, torch.Tensor]) -> None:
+    def _apply(self, grads: Mapping[str, torch.Tensor], state: Dict, params: Mapping[str, torch.Tensor],
+               norm_of: Optional[Callable[[Mapping[str, torch.Tensor]], torch.Tensor]] = None) -> None:
         count = state["count"]
         bias1 = 1.0 - self.b1 ** (count + 1)
         bias2 = 1.0 - self.b2 ** (count + 1)
@@ -116,7 +132,7 @@ class OptaxAdamW:
             p = [params[n] for n in names]
             mu = [state["mu"][n] for n in names]
             nu = [state["nu"][n] for n in names]
-            norm = global_norm(g)
+            norm = global_norm(g) if norm_of is None else norm_of(dict(zip(names, g)))
             clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
             g = torch._foreach_mul(g, clip)
             torch._foreach_mul_(nu, self.b2)

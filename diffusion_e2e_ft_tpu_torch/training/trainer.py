@@ -58,6 +58,24 @@ the global batch. The no-valid-pixel guard and the NaN guard read the global
 loss (a NaN on one rank zeroes every rank's). Noise and timesteps are drawn
 for the global batch from the identically seeded generators and each rank
 keeps its rows, so the draws do not depend on the number of ranks.
+
+FSDP (a group with `fsdp_size > 1`, the JAX step over `Mesh(('data',
+'fsdp'))`): `shard` (or `parallel.shard_state`) leaves each rank the blocks
+of its fsdp index of every leaf that `param_spec` splits, in the
+parameters, Adam's moments, the accumulator and the EMA; `state.sharding`
+records them. A step gathers the UNet's full parameters from the master
+shards over the fsdp axis before its forward and keeps them over the K
+micro-steps of an accumulation window (they do not move in between); on the
+synced micro-step they are released once the backward has run, since the
+update moves the shards only, so between steps a rank holds its shards. The
+fsdp ranks of one data group compute the same rows: each keeps its block
+of every sharded gradient and sums only that, with the replicated leaves,
+over the data axis, then takes the fsdp group's first rank's gradient of
+the replicated leaves (so that a backward that is not bitwise
+deterministic cannot let their copies drift apart), and the global norm
+sums the shards' squares over the fsdp axis and counts the replicated
+leaves once. Every data-parallel use above is over the
+data axis.
 """
 
 from __future__ import annotations
@@ -76,22 +94,67 @@ from diffusion_e2e_ft_tpu_torch.ops import losses as L
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
 from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy
-from diffusion_e2e_ft_tpu_torch.parallel.sharding import DataParallel, shard_train_batch
+from diffusion_e2e_ft_tpu_torch.parallel.sharding import DataParallel, StateSharding, shard_of, shard_state
 from diffusion_e2e_ft_tpu_torch.training.config import TrainConfig
 from diffusion_e2e_ft_tpu_torch.training.lr import iter_exponential_schedule
-from diffusion_e2e_ft_tpu_torch.training.optim import OptaxAdamW, ema_update_, global_norm
+from diffusion_e2e_ft_tpu_torch.training.optim import OptaxAdamW, ema_update_, global_norm, sharded_global_norm
 
 
 @dataclasses.dataclass
 class TrainState:
     """Host-side counters, the UNet's trainable parameters (the module's own
-    tensors, by name), the optimizer state and the EMA copy."""
+    tensors, by name), the optimizer state and the EMA copy. A sharded state
+    (`sharding` set) holds the rank's blocks of the leaves it names and the
+    module's own tensors for the others."""
 
     step: int  # optimizer (synced) steps
     micro_step: int  # micro-batches: step * accumulation + k
     params: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    sharding: Optional[StateSharding] = None
+
+
+def state_tensors(state: TrainState) -> list:
+    """[(parameter name, tensor)] of every tensor of the state, in one order:
+    the parameters, each of the optimizer's tensor dicts, the EMA."""
+    out = list(state.params.items())
+    for value in state.opt_state.values():
+        if isinstance(value, dict):
+            out += list(value.items())
+    return out + list((state.ema_params or {}).items())
+
+
+def gather_tensors(tree: Mapping[str, torch.Tensor], sh: Optional[StateSharding], device=None,
+                   keep: bool = True) -> Optional[Dict[str, torch.Tensor]]:
+    """The full tensors of a tree of parameter-named tensors sharded as `sh`
+    says: its shards gathered over the fsdp axis (a collective: every rank
+    of the group calls it) onto `device` (default: the shards'), bucket by
+    bucket, its replicated tensors as they are; the tree itself when `sh`
+    is None. None on a rank with `keep` False, which only takes part."""
+    if sh is None:
+        return dict(tree)
+    names = [n for n in tree if n in sh.axes]
+    gathered = sh.group.gather_shards([tree[n] for n in names], [sh.axes[n] for n in names], device, keep)
+    if not keep:
+        return None
+    gathered = dict(zip(names, gathered))
+    return {n: gathered.get(n, t) for n, t in tree.items()}
+
+
+def gather_state(state: TrainState, device=None, keep: bool = True) -> Optional[TrainState]:
+    """The full state of a sharded one, the same on every rank that keeps
+    it: `gather_tensors` of its parameters, optimizer tensors and EMA. A
+    state that is not sharded is returned as it is."""
+    sh = state.sharding
+    if sh is None:
+        return state
+    full = functools.partial(gather_tensors, sh=sh, device=device, keep=keep)
+    opt = {k: full(v) if isinstance(v, dict) else v for k, v in state.opt_state.items()}
+    params, ema = full(state.params), None if state.ema_params is None else full(state.ema_params)
+    if not keep:
+        return None
+    return dataclasses.replace(state, params=params, opt_state=opt, ema_params=ema, sharding=None)
 
 
 # what each remat policy saves of the checkpointed UNet's forward
@@ -157,6 +220,7 @@ class E2ETrainer:
         self.latent_scale = latent_scale
         self.pyramid_scale_bank = pyramid_scale_bank(config.seed, *self.PYRAMID_BANK)
         self.dp: Optional[DataParallel] = None  # set by place_frozen / shard
+        self._gathered = False  # the UNet holds full tensors of the sharded parameters
         c = config
         # the reference scales schedule lengths by the data-parallel degree
         self.lr_schedule = iter_exponential_schedule(
@@ -191,25 +255,65 @@ class E2ETrainer:
         self.dp = dp
 
     def replicate_state(self, state: TrainState) -> TrainState:
-        """Give every rank rank 0's parameters, optimizer moments and EMA."""
+        """Give every rank rank 0's parameters, optimizer moments and EMA; of
+        a sharded state, rank 0's replicated tensors and, over the data axis,
+        the shards of data index 0 at the rank's fsdp index."""
         if self.dp is not None:
-            tensors = list(state.params.values())
-            tensors += [t for v in state.opt_state.values() if isinstance(v, dict) for t in v.values()]
-            tensors += list((state.ema_params or {}).values())
-            self.dp.broadcast_(tensors)
+            axes = {} if state.sharding is None else state.sharding.axes
+            named = state_tensors(state)
+            self.dp.broadcast_([t for n, t in named if n not in axes])
+            if axes:
+                self.dp.broadcast_shards_([t for n, t in named if n in axes])
         return state
 
-    def shard(self, state: TrainState, batch: Mapping[str, Any], dp: DataParallel):
-        """(the replicated state, this rank's rows of the global `batch`)."""
+    def shard(self, state: TrainState, batch: Mapping[str, Any], dp: DataParallel, min_size: int = 1 << 18):
+        """(the replicated state, this rank's rows of the global `batch`);
+        over an fsdp axis the state is the rank's shards (`shard_state` with
+        `min_size`) and the UNet's sharded parameters are released."""
         self.place_frozen(dp)
-        return self.replicate_state(state), shard_train_batch(batch, dp.rank, dp.world)
+        state = self.replicate_state(state)
+        if dp.fsdp_size > 1:
+            state = shard_state(state, dp, min_size)
+            if state.sharding is not None:
+                self._release_params(state.sharding)
+        return state, dp.shard_batch(batch)
+
+    def _gather_params(self, state: TrainState) -> None:
+        """Point the UNet's sharded parameters at full tensors gathered from
+        `state`'s master shards over the fsdp axis, unless they already are
+        (within an accumulation window)."""
+        sh = state.sharding
+        if sh is None or self._gathered:
+            return
+        self._release_params(sh)  # whatever the module still holds (its tensors before `shard_state`) is stale
+        params = dict(self.unet.named_parameters())
+        full = gather_tensors(state.params, sh)
+        for name in sh.axes:
+            params[name].data = full[name]
+        self._gathered = True
+
+    def _release_params(self, sh: StateSharding) -> None:
+        """Free the UNet's full tensors of the parameters `sh` shards."""
+        params = dict(self.unet.named_parameters())
+        for name in sh.axes:
+            params[name].data = params[name].data.new_empty(0)
+        self._gathered = False
+
+    @staticmethod
+    def _global_norm(tensors: Mapping[str, torch.Tensor], sh: Optional[StateSharding]) -> torch.Tensor:
+        """The global norm of a gradient by parameter name; of one sharded
+        as `sh` says, over the fsdp axis, each replicated leaf counted once."""
+        if sh is None:
+            return global_norm(list(tensors.values()))
+        return sharded_global_norm([t for n, t in tensors.items() if n in sh.axes],
+                                   [t for n, t in tensors.items() if n not in sh.axes], sh.group.fsdp_sum)
 
     def _noise(self, shape, generator: Optional[torch.Generator], timesteps: Optional[torch.Tensor] = None,
                pair: bool = False) -> torch.Tensor:
         """This rank's rows of the noise latent drawn for the global batch:
         `shape` is the rank's, `timesteps` the global batch's; `pair` takes
         the rows from both halves of a [depth; normal] task pair."""
-        world = 1 if self.dp is None else self.dp.world
+        world = 1 if self.dp is None else self.dp.data_size
         if world == 1 or self.config.noise_type in (None, "zeros"):
             return self._make_noisy_latents(shape, generator, timesteps)
         noise = self._make_noisy_latents((shape[0] * world, *shape[1:]), generator, timesteps)
@@ -330,20 +434,30 @@ class E2ETrainer:
         return loss, {"loss": loss.detach()}
 
     def value_and_grad(
-        self, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None, **explicit
+        self, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None,
+        sharding: Optional[StateSharding] = None, **explicit
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """(loss, metrics, gradient of the loss by UNet parameter name);
         `explicit` goes to `loss` (the tests' fixed draws). In a data-parallel
         group the loss, the metrics and the gradients are the global batch's:
-        the ranks' parts summed."""
+        the ranks' parts summed; with `sharding` (the state's, over an fsdp
+        axis), the gradients are this rank's blocks of the ones it shards."""
         names, params = zip(*self.unet.named_parameters())
         loss, metrics = self.loss(batch, generator, **explicit)
         grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        sh = sharding
+        if sh is not None:  # the fsdp ranks computed the same rows: each keeps, and sums over 'data', its block
+            grads = [g if n not in sh.axes else shard_of(g, sh.axes[n], sh.group.fsdp_index, sh.group.fsdp_size).clone()
+                     for n, g in zip(names, grads)]
         if self.dp is not None:
             self.dp.all_reduce_(grads)
             keys = list(metrics)
             metrics = dict(zip(keys, self.dp.all_sum(torch.stack([metrics[k].float() for k in keys])).unbind()))
             loss = metrics["loss"]
+        if sh is not None:
+            # a backward that is not deterministic (atomics on the card) would let the ranks' copies of the
+            # replicated leaves drift apart: every rank takes the first one's gradient of them
+            sh.group.fsdp_broadcast_([g for n, g in zip(names, grads) if n not in sh.axes])
         return loss.detach(), metrics, dict(zip(names, grads))
 
     # ------------------------------------------------------------------
@@ -359,11 +473,16 @@ class E2ETrainer:
         on the device: the losses and `grad_norm` (the raw micro-batch
         gradient's global norm, before clipping) are tensors; `lr_step` is an int.
         In a data-parallel group `batch` holds the rank's rows."""
-        _, metrics, grads = self.value_and_grad(batch, generator)
-        metrics["grad_norm"] = global_norm(list(grads.values()))
-        self.optimizer.update(grads, state.opt_state, state.params)
         micro = state.micro_step + 1
         synced = micro % self.config.gradient_accumulation_steps == 0
+        sh = state.sharding
+        self._gather_params(state)
+        _, metrics, grads = self.value_and_grad(batch, generator, sh)
+        if synced and sh is not None:
+            self._release_params(sh)  # the update moves the master shards only
+        norm = functools.partial(self._global_norm, sh=sh)
+        metrics["grad_norm"] = norm(grads)
+        self.optimizer.update(grads, state.opt_state, state.params, norm=norm)
         step = state.step + int(synced)
         if synced and state.ema_params is not None:
             ema_update_(state.ema_params, state.params, self.config.ema_decay)

@@ -10,6 +10,7 @@ its own converter.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import jax
 import numpy as np
@@ -54,15 +55,11 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
 
 
 def read_key_inventory(name: str) -> dict:
-    """{HF key: shape} of a frozen inventory under tests/fixtures/hf_keys/."""
-    import os
+    """{HF key: shape} of a frozen inventory under tests/fixtures/hf_keys/,
+    read by the port's own `tools/hf_key_inventory.py`."""
+    from diffusion_e2e_ft_tpu_torch.tools.hf_key_inventory import load_fixture
 
-    path = os.path.join(os.path.dirname(__file__), "fixtures", "hf_keys", f"{name}.txt")
-    out = {}
-    for line in open(path):
-        key, shape = line.split()
-        out[key] = tuple(int(s) for s in shape.split(","))
-    return out
+    return load_fixture(os.path.join(os.path.dirname(__file__), "fixtures", "hf_keys"), name)
 
 
 TINY_VAE = dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1, norm_num_groups=4)
@@ -161,3 +158,38 @@ def record(monkeypatch, module, name: str) -> list:
 
     monkeypatch.setattr(module, name, wrapper)
     return seen
+
+
+def dp_scenario_flax_weights() -> tuple:
+    """Seeded weights of `tests/_torch_dp_worker.py`'s models as the JAX
+    package's trees: (SD2 UNet, SD2 VAE, GeoWizard {unet, vae,
+    image_encoder}, the empty-text context)."""
+    import jax.numpy as jnp
+
+    import _torch_dp_worker as W
+    from diffusion_e2e_ft_tpu.models import AutoencoderKL as JVAE, UNet2DCondition as JUNet
+    from diffusion_e2e_ft_tpu.models import UNetConfig as JUNetConfig, VAEConfig as JVAEConfig
+    from diffusion_e2e_ft_tpu.models import clip as jclip
+
+    up = random_flax_params(JUNet(JUNetConfig.tiny(**W.UNET)), 0, jnp.ones((1, 8, 8, 8)), jnp.asarray(999),
+                            jnp.ones((1, 2, 32)))
+    vp = random_flax_params(JVAE(JVAEConfig(**W.VAE)), 1, jnp.ones((1, 32, 32, 3)))
+    geo = geowizard_flax_params(JUNetConfig.geowizard(**W.GEO_UNET), JVAEConfig(**W.GEO_VAE),
+                                jclip.CLIPVisionConfig(**W.VISION), seed=20)
+    return up, vp, geo, np.random.default_rng(2).normal(size=(1, 2, 32)).astype(np.float32)
+
+
+def dp_scenario_weights(flax_weights: Optional[tuple] = None) -> dict:
+    """`dp_scenario_flax_weights` (or the given trees) as the port's state
+    dicts: the tiny SD2 UNet and VAE, the empty-text context, and
+    GeoWizard's UNet, VAE and image tower."""
+    up, vp, geo, empty = flax_weights or dp_scenario_flax_weights()
+
+    def state_dict(tree):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in tconvert.flax_params_to_state_dict(jax.tree.map(np.array, tree)).items()}
+
+    enc = tconvert.clip_vision_params_to_state_dict(geo["image_encoder"])
+    return {"unet": state_dict(up), "vae": state_dict(vp), "geo_unet": state_dict(geo["unet"]),
+            "geo_vae": state_dict(geo["vae"]), "empty": empty,
+            "geo_encoder": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in enc.items()}}

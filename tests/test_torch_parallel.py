@@ -13,7 +13,7 @@
 - The two ranks' first loss and grad norm equal the JAX trainer's on a
   2-device mesh (`E2ETrainer.shard`), same weights and batch, to 1e-5.
 - The mesh helpers keep the JAX rules (`shard_batch`, `make_mesh`), the FSDP
-  axis raises naming slice F2, the mixer's ranks read their rows in the
+  axis lays the devices out as the JAX mesh does, the mixer's ranks read their rows in the
   single-process order with the same flips, the pipelines' `with_mesh([cpu,
   cpu])` equals no mesh, and `cli.train --num_devices 2 --device cpu` trains
   and exports on the synthetic trees.
@@ -183,8 +183,9 @@ def test_make_mesh_run_members_and_the_fsdp_axis():
     assert parallel.make_train_mesh(devices=["cpu", "cpu"]).shape == {"data": 2, "fsdp": 1}
     with pytest.raises(ValueError, match="asked for 3 devices"):
         parallel.make_mesh(3, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="slice F2"):
-        parallel.make_train_mesh(devices=["cpu", "cpu"], fsdp=2)
+    assert parallel.make_train_mesh(devices=["cpu"] * 4, fsdp=2).shape == {"data": 2, "fsdp": 2}
+    with pytest.raises(ValueError, match="not divisible by fsdp=3"):
+        parallel.make_train_mesh(devices=["cpu", "cpu"], fsdp=3)
     calls = []
     rows = parallel.run_members(["a", "b"], mesh, torch.arange(4.0)[:, None],
                                 lambda rep, x: calls.append((rep, x.tolist())) or x * 2, "cpu")

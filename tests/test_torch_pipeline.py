@@ -149,7 +149,8 @@ def test_with_mesh_raises_naming_slice_f(pipes, image, monkeypatch):
     seeded two-member ensemble's members are the no-mesh ones, bit for bit
     (their BFGS alignment, the same function of the same members, is held in
     `test_call_ensemble_matches`; a mean stands in for it here). What still
-    raises is the FSDP axis, naming slice F2."""
+    raised is the FSDP axis, which now lays its devices out as the JAX mesh
+does and refuses a device count it does not divide."""
     _, tp = pipes
     members = []
     monkeypatch.setattr(tens, "ensemble_depths", lambda preds, **kw: (members.append(preds) or preds.mean(0),
@@ -164,8 +165,9 @@ def test_with_mesh_raises_naming_slice_f(pipes, image, monkeypatch):
     assert len(members) == 2 and torch.equal(members[0], members[1])
     np.testing.assert_array_equal(got.depth_np, want.depth_np)
     np.testing.assert_array_equal(got.uncertainty, want.uncertainty)
-    with pytest.raises(NotImplementedError, match="slice F2"):
-        parallel.make_train_mesh(devices=["cpu", "cpu"], fsdp=2)
+    assert parallel.make_train_mesh(devices=["cpu"] * 4, fsdp=2).shape == {"data": 2, "fsdp": 2}
+    with pytest.raises(ValueError, match="not divisible by fsdp=3"):
+        parallel.make_train_mesh(devices=["cpu", "cpu"], fsdp=3)
 
 
 def test_unported_options_raise(monkeypatch, pipes, image):
