@@ -193,7 +193,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    saved by the group, restored into zeroed shards (equal to the bit) and
    one more step; then (d) `tools/export_roundtrip` at full width on the
    card, fp32 and bf16, at a 480x640 probe (kernel 1 at the NYU frames'
-   shapes): every row zero.
+   shapes): every row zero;
+20. slice E3, the card against the JAX package's own numbers: the committed
+   goldens (`tests/golden/*.npz`, written by `tests/golden/make_goldens.py`
+   with JAX on a CPU), whose weights the numpy rule of
+   `tests/_torch_golden.py` draws again here (digest checked) and
+   `tests/_torch_golden_port.py` runs through the port on cuda:0 in fp32,
+   kernels on: Marigold depth and normals and the SD2 depth train step
+   (fused VAE; again under `E2EFT_GNCONV_IMPL=v2`) at SD2 width, GeoWizard
+   at SD1.5 / CLIP ViT-L width (again under `E2EFT_FA_HP=2`), all at
+   256x256 with the UNets one block a level, and the tiny Marigold single
+   step and SD2 train steps of the CPU tests; each output within the port's
+   CPU-vs-JAX bound plus the card-vs-CPU bound of phases 5 and 7
+   (`card_bounds`), every one of kernels 1-8 launched (counts printed); then
+   the card goldens' Marigold and GeoWizard in bf16, max |delta| against the
+   fp32 goldens printed, unbounded.
 
 Phase 3c runs the forward kernel at every shape phase 15's requests send
 it, worked out from their sizes: the baseline's chunk of 10 at 480x640
@@ -3384,6 +3398,153 @@ def phase_export_roundtrip(work: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: slice E3, the card against the JAX reference's golden outputs
+# ---------------------------------------------------------------------------
+
+# the card goldens' UNets (one block a level) at 256x256: kernel sites at levels 0 and 1 (1024 and 256 tokens;
+# GeoWizard's joint 2048 and 512), one down and two up blocks each; a Marigold or GeoWizard run adds the VAE's two
+GOLDEN_UNET_SITES = 6
+GOLDEN_HP_SITES = 3  # ... GeoWizard's d=40 ones (level 0), under E2EFT_FA_HP=2
+
+
+def load_test_module(name: str):
+    """`tests/<name>.py` loaded by its path (the golden rule and the port's
+    runners; they import no JAX)."""
+    import importlib.util
+
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(REPO_DIR, "tests", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def card_bounds(P, g) -> dict:
+    """A golden's bounds on the card: the port's CPU-vs-JAX bound of each
+    output (`P.BOUNDS`) plus the card-vs-CPU bound the earlier phases hold
+    the same path to: `E2E_BOUNDS` for depth and normals, and
+    `TRAIN_PARITY_BOUNDS` for the loss, the grad norm and, through Adam's
+    first step, each updated parameter: |d p| <= lr |d u| with u = g / (|g|
+    + eps), |d u| <= min(2, |d g| / eps), |d g| <= leaf bound * max |g|."""
+    out = {}
+    for key, (kind, bound) in P.BOUNDS[g.name].items():
+        if kind == "abs":
+            bound += E2E_BOUNDS["normals" if "normal" in key else "depth"]
+        elif kind == "rel":
+            bound += TRAIN_PARITY_BOUNDS["grad_norm" if key.endswith("grad_norm") else "loss"]
+        elif kind == "sums":
+            cfg = g.meta["train_config"]
+            prefix = key[: -len("param_sums")]
+            du = np.minimum(2.0, TRAIN_PARITY_BOUNDS["leaf"] * g[f"{prefix}grad_max"] / cfg["adam_epsilon"])
+            bound = bound + cfg["learning_rate"] * du
+        out[key] = (kind, bound)
+    return out
+
+
+def phase_goldens() -> dict:
+    """Phase 20: the port on cuda:0, fp32 with the kernels on, held to the
+    JAX package's committed goldens (tests/golden/*.npz) within the CPU-vs-JAX
+    bound plus the card-vs-CPU bound of each path (`card_bounds`): the card
+    set at published widths and 256x256 (Marigold depth and normals;
+    GeoWizard, again under `E2EFT_FA_HP=2`; the SD2 depth train step with
+    the fused VAE, again under `E2EFT_GNCONV_IMPL=v2`) and the tiny Tier-1
+    goldens of the main path (Marigold single step, the SD2 train step).
+    Every one of kernels 1-8 must launch. Then the card set's serving
+    goldens in bf16: max |d| against the fp32 goldens, printed (no bound).
+    Returns the phase's launches."""
+    R, P = load_test_module("_torch_golden"), load_test_module("_torch_golden_port")
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(read_launches(), 0)
+    dev = "cuda"
+
+    def tally(label: str, expect: dict) -> None:
+        """Add the launches since the last tally; they must be `expect`'s (the rest 0)."""
+        torch.cuda.synchronize()
+        done = read_launches()
+        reset_launches()
+        for name, n in done.items():
+            launches[name] += n
+        check(done == {**dict.fromkeys(done, 0), **expect}, f"{label} launched {done}, expected {expect}")
+
+    def held(g, got: dict, label: str, expect: dict) -> None:
+        tally(g.name + label, expect)
+        rows = P.compare(g, got, card_bounds(P, g))
+        for row in rows:
+            print(f"[golden] {g.name}{label} {row}", flush=True)
+        check(all(row.ok for row in rows), f"{g.name}{label}: the card disagrees with the JAX golden")
+
+    def drift(g, got: dict, expect: dict) -> None:
+        tally(g.name + " bf16", expect)
+        for key in ("depth", "normals"):
+            d = np.abs(got[key] - g[key])
+            print(f"[golden] {g.name} bf16 {key} vs the fp32 JAX golden: max|d| {d.max():.3e}, mean {d.mean():.3e}",
+                  flush=True)
+
+    def weights_of(g):
+        t0 = time.perf_counter()
+        mods = P.modules(g, dev)  # drawn by the rule on the host, the digest checked on the card
+        print(f"[golden] {g.name}: {sum(p.numel() for m in mods.values() for p in m.parameters()) / 1e6:.1f} M "
+              f"weights drawn and digest-checked in {time.perf_counter() - t0:.1f} s", flush=True)
+        return mods
+
+    marigold = {"flash_attention_fwd": 2 * (GOLDEN_UNET_SITES + 2)}  # depth and normals
+    geowizard = {"flash_attention_fwd": GOLDEN_UNET_SITES + 2}
+    reset_launches()
+    g = R.Golden("marigold_single")  # tiny: no kernel site
+    held(g, P.single_step(g, P.marigold_pipeline(g, P.modules(g, dev), dev), ("_64", "_72x56")), "", {})
+    g = R.Golden("train_sd2")
+    held(g, {k: v for m in g.meta["modalities"] for k, v in P.train_step(g, P.modules(g, dev), f"{m}.", dev, m).items()},
+         "", {})
+
+    g = R.Golden("card_marigold")
+    mods = weights_of(g)
+    held(g, P.single_step(g, P.marigold_pipeline(g, mods, dev)), " fp32", marigold)
+    bf16 = {k: copy.deepcopy(m) for k, m in mods.items()}
+    drift(g, P.single_step(g, P.marigold_pipeline(g, bf16, dev, torch.bfloat16)), marigold)
+    del bf16
+    g_train = R.Golden("card_train")
+    check(g_train.meta["weights"] == g.meta["weights"] and all(
+        np.array_equal(g_train.digests[p], g.digests[p]) for p in g.digests), "card_train's weights are not card_marigold's")
+    initial = {n: p.detach().clone() for n, p in mods["unet"].named_parameters()}
+    held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v1", step_launches(GOLDEN_UNET_SITES))
+    with torch.no_grad():
+        for n, p in mods["unet"].named_parameters():
+            p.copy_(initial[n])
+    del initial
+    os.environ["E2EFT_GNCONV_IMPL"] = "v2"
+    try:
+        held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v2",
+             step_launches(GOLDEN_UNET_SITES, "v2"))
+    finally:
+        del os.environ["E2EFT_GNCONV_IMPL"]
+    del mods
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g = R.Golden("card_geowizard")
+    mods = weights_of(g)
+    pipe = P.geowizard_pipeline(mods, dev)
+    held(g, P.geowizard(g, pipe, ensemble=False), " fp32", geowizard)
+    os.environ["E2EFT_FA_HP"] = "2"
+    try:
+        held(g, P.geowizard(g, pipe, ensemble=False), " fp32 hp 2",
+             {"flash_attention_fwd_mh": GOLDEN_HP_SITES, "flash_attention_fwd": GOLDEN_UNET_SITES + 2 - GOLDEN_HP_SITES})
+    finally:
+        del os.environ["E2EFT_FA_HP"]
+    drift(g, P.geowizard(g, P.geowizard_pipeline({k: copy.deepcopy(m) for k, m in mods.items()}, dev, torch.bfloat16),
+                         ensemble=False), geowizard)
+    del pipe, mods
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[golden] launches in phase 20 {json.dumps(launches)}", flush=True)
+    print(f"[golden] phase 20 in {seconds:.1f} s", flush=True)
+    check(all(n > 0 for n in launches.values()), f"phase 20: a kernel held to the goldens never launched: {launches}")
+    return launches
+
+
 def save_weights(path: str, **parts) -> None:
     """Modules' configs and weights (on the CPU, `dtype` if given) for phase 18a's processes."""
     dtype = parts.pop("dtype", None)
@@ -3504,6 +3665,7 @@ def run(dp_work: str) -> int:
     dp_launches = phase_data_parallel(dp_work)  # slice F's main path, in processes of its own
     fsdp_launches = phase_fsdp(dp_work)  # slice F2's main path, after 18a's reference
     launches["flash_attention_fwd"] += phase_export_roundtrip(dp_work)  # slice G
+    phase_goldens()  # slice E3: every kernel against the JAX package's numbers; a check, not a main path
     for name, n in [*geo_train.items(), *data_path.items(), *dp_launches.items(), *fsdp_launches.items()]:
         launches[name] += n
     check(all(n > 0 for n in launches.values()), f"a kernel of the main paths was not launched: {launches}")

@@ -1,0 +1,11 @@
+#!/usr/bin/env bash
+# Metric evaluation for kitti (least-squares alignment, 10-metric set).
+# The PyTorch port's twin of experiments/depth/eval_args/geowizard_e2e_ft/22_eval_kitti.sh: the same arguments, on DEVICE (default cuda).
+set -e
+python -m diffusion_e2e_ft_tpu_torch.cli.eval_depth \
+  --dataset_config config/dataset/data_kitti_eigen_test.yaml \
+  --base_data_dir "${BASE_DATA_DIR:-data}" \
+  --prediction_dir output/depth/geowizard_e2e_ft/kitti_eigen_test/prediction \
+  --output_dir output/depth/geowizard_e2e_ft/kitti_eigen_test/eval_metric \
+  --alignment least_square \
+  --device "${DEVICE:-cuda}"

@@ -1,0 +1,13 @@
+#!/usr/bin/env bash
+# Inference dump for scannet with the marigold_e2e_ft checkpoint (1-step, zeros noise, trailing).
+# The PyTorch port's twin of experiments/depth/eval_args/marigold_e2e_ft/41_infer_scannet.sh: the same arguments, on DEVICE (default cuda).
+set -e
+python -m diffusion_e2e_ft_tpu_torch.cli.infer \
+  --checkpoint "${CHECKPOINT:-GonzaloMG/marigold-e2e-ft-depth}" \
+  --model_type marigold \
+  --dataset_config config/dataset/data_scannet_val.yaml \
+  --base_data_dir "${BASE_DATA_DIR:-data}" \
+  --output_dir output/depth/marigold_e2e_ft/scannet/prediction \
+  --denoise_steps 1 --ensemble_size 1 --noise zeros --processing_res 0 \
+  --seed 1234 \
+  --device "${DEVICE:-cuda}"

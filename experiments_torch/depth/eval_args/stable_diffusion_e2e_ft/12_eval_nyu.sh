@@ -1,0 +1,11 @@
+#!/usr/bin/env bash
+# Metric evaluation for nyu (least-squares alignment, 10-metric set).
+# The PyTorch port's twin of experiments/depth/eval_args/stable_diffusion_e2e_ft/12_eval_nyu.sh: the same arguments, on DEVICE (default cuda).
+set -e
+python -m diffusion_e2e_ft_tpu_torch.cli.eval_depth \
+  --dataset_config config/dataset/data_nyu_test.yaml \
+  --base_data_dir "${BASE_DATA_DIR:-data}" \
+  --prediction_dir output/depth/stable_diffusion_e2e_ft/nyu_test/prediction \
+  --output_dir output/depth/stable_diffusion_e2e_ft/nyu_test/eval_metric \
+  --alignment least_square \
+  --device "${DEVICE:-cuda}"

@@ -8,12 +8,19 @@ import ast
 import os
 import pathlib
 import pkgutil
+import re
 import subprocess
 import sys
 
 import diffusion_e2e_ft_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# run first in a process, it makes JAX and its libraries unimportable
+JAX_BLOCKER = (
+    "import sys\n"
+    "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+    "    sys.modules[name] = None\n"
+)
 
 
 def _port_modules():
@@ -83,10 +90,8 @@ def test_port_modules_listed():
 
 def test_imports_with_jax_blocked():
     code = (
-        "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
-        "    sys.modules[name] = None\n"
-        "import importlib\n"
+        JAX_BLOCKER
+        + "import importlib\n"
         f"for mod in {_port_modules()!r}:\n"
         "    importlib.import_module(mod)\n"
         "assert not any(m == 'diffusion_e2e_ft_tpu' or m.startswith('diffusion_e2e_ft_tpu.')\n"
@@ -104,10 +109,8 @@ def test_train_cli_data_readers_import_without_jax():
     """`cli.train`'s data readers and mixer are the port's own copies; they
     (and the CLI's parser) load with JAX blocked too."""
     code = (
-        "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
-        "    sys.modules[name] = None\n"
-        "from diffusion_e2e_ft_tpu_torch.data.mixer import BatchLoader, MixedLoader, Prefetcher\n"
+        JAX_BLOCKER
+        + "from diffusion_e2e_ft_tpu_torch.data.mixer import BatchLoader, MixedLoader, Prefetcher\n"
         "from diffusion_e2e_ft_tpu_torch.data.train_datasets import Hypersim, VirtualKITTI2\n"
         "from diffusion_e2e_ft_tpu_torch.cli.train import build_parser\n"
         "build_parser().parse_args(['--pretrained_model_name_or_path', 'x'])\n"
@@ -123,6 +126,24 @@ def test_train_cli_data_readers_import_without_jax():
 def _jax_package_imports(path: pathlib.Path) -> list:
     """Every `import diffusion_e2e_ft_tpu...` / `from diffusion_e2e_ft_tpu... import`
     in a source, at any depth, as (line, module)."""
+    return _imports(path, ("diffusion_e2e_ft_tpu",))
+
+
+# the golden outputs' rule, the port's runners and their tests, which a box without JAX runs
+GOLDEN_SOURCES = ["tests/_torch_golden.py", "tests/_torch_golden_port.py", "tests/test_torch_golden.py"]
+
+
+def test_no_source_imports_the_jax_package():
+    root = pathlib.Path(REPO)
+    sources = (sorted((root / "diffusion_e2e_ft_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+               + [root / p for p in GOLDEN_SOURCES])
+    assert len(sources) > 30
+    offending = {str(p.relative_to(root)): hits for p in sources if (hits := _jax_package_imports(p))}
+    assert offending == {}
+
+
+def _imports(path: pathlib.Path, roots) -> list:
+    """Every import of a module under one of `roots`, at any depth, as (line, module)."""
     found = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -131,16 +152,29 @@ def _jax_package_imports(path: pathlib.Path) -> list:
             names = [node.module]
         else:
             continue
-        found += [(node.lineno, n) for n in names if n.split(".")[0] == "diffusion_e2e_ft_tpu"]
+        found += [(node.lineno, n) for n in names if n.split(".")[0] in roots]
     return found
 
 
-def test_no_source_imports_the_jax_package():
+def test_golden_sources_import_no_jax():
+    """The goldens' rule, runners and tests import no JAX library; the
+    generator (which runs the JAX package) imports nothing of the port."""
     root = pathlib.Path(REPO)
-    sources = sorted((root / "diffusion_e2e_ft_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
-    assert len(sources) > 30
-    offending = {str(p.relative_to(root)): hits for p in sources if (hits := _jax_package_imports(p))}
-    assert offending == {}
+    jax_libraries = ("jax", "jaxlib", "flax", "optax", "orbax")
+    assert {p: _imports(root / p, jax_libraries) for p in GOLDEN_SOURCES} == dict.fromkeys(GOLDEN_SOURCES, [])
+    generator = root / "tests" / "golden" / "make_goldens.py"
+    assert _imports(generator, ("diffusion_e2e_ft_tpu_torch",)) == [] and _imports(generator, ("jax",))
+
+
+def test_experiment_twins_invoke_port_modules():
+    """Every `python -m` of `experiments_torch/` names a module of the port
+    (which `test_imports_with_jax_blocked` imports with JAX blocked)."""
+    invoked = set()
+    for path in pathlib.Path(REPO, "experiments_torch").rglob("*.sh"):
+        invoked |= set(re.findall(r"python -m (\S+)", path.read_text()))
+    assert invoked == {"diffusion_e2e_ft_tpu_torch.cli.infer", "diffusion_e2e_ft_tpu_torch.cli.eval_depth",
+                       "diffusion_e2e_ft_tpu_torch.cli.eval_normals"}
+    assert invoked <= set(_port_modules())
 
 
 def test_import_scan_sees_nested_imports(tmp_path):
