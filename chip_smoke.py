@@ -31,15 +31,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bias, bounded as the backward kernels; the statistics and v2 each twice
    for identical bits; and their times (events around one call and around
    calls back to back) beside the plain versions' and the bound;
+4c. the standalone GroupNorms' route: the statistics kernel then the apply
+   kernel (`groupnorm.group_norm_kernel`) against `group_norm_reference`, and
+   the apply alone against `group_norm_apply_reference`, at every shape that
+   the serving, ensemble, eval, parity and train paths below send a
+   standalone GroupNorm (derived from the modules at each path's batches:
+   `route_paths`, `route_shapes`; the in-process paths' launches are
+   recorded and must fall at these shapes), fp32 and bf16 (the affine fp32 or
+   bf16, the SiLU on or off, in turns), bounded as 4b, two calls bit-identical;
+   and at the Marigold 768x768 request's shapes the route's, the statistics',
+   the apply's, the plain version's, `F.group_norm` (+ `F.silu`)'s and, for
+   the apply, `torch.addcmul`'s times beside the bounds, and their sums over
+   one request;
 5. end-to-end parity, fp32 with TF32 off: a full-width SD2 Marigold pipeline
    with seeded random weights runs one 256x256 image, depth and normals, on
-   the CPU (plain path) and on the GPU (kernel path, 12 kernel launches each);
+   the CPU (plain path) and on the GPU (kernel path: 12 attention kernel
+   launches each, and the GroupNorm route at each of the 113 standalone
+   GroupNorms of the encoder, the UNet and the decoder);
 6. serving, slice A's main path: the same weights written as an HF pipeline
    directory (bf16 `.bin` files), loaded with `MarigoldPipeline.from_hf_dir`
    on the GPU in bf16, and a `PipelineService` answering 768x768 depth,
    768x768 normals and 576x768 depth requests (17 attention kernel launches
-   each, no GroupNorm kernel: serving keeps `fused_gn_conv=False`), with
-   latency and peak device memory;
+   each, and 113 statistics + 113 apply launches: every GroupNorm is
+   standalone, as serving keeps `fused_gn_conv=False`), with latency and
+   peak device memory;
 7. training parity, fp32 with TF32 off, with the default
    `fused_vae_kernels=True`: one E2E train step's loss and gradients
    (full-width SD2 UNet and VAE, seeded random weights, 256x256, depth and
@@ -151,7 +166,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `cli.train` on the two trees, bf16, UNet checkpointing, bs 2, two 9:1
    epochs, for normals and for depth: both shapes (480x640 and the VKITTI2
    crop's 352x1216) ran, finite losses, `step_launches(15)` a step at each,
-   every kernel launched only at a shape phases 3, 3c, 4 and 4b hold against
+   every kernel launched only at a shape phases 3, 3c, 4, 4b and 4c hold against
    the plain version, ms/step at each shape, peak memory, each reader's host
    ms a sample, the step loop's waits on `Prefetcher`, and the export loading
    with `MarigoldPipeline.from_hf_dir`;
@@ -177,7 +192,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whose loss, grad norm and every parameter after the step must equal the
    reference's within `DP_BOUNDS`, then bf16 SD2 and GeoWizard joint steps on
    their rows, with ms/step, peak memory a rank, `step_launches(15)` a step
-   and every kernel shape one that phases 3, 3c, 4 and 4b hold (phases 4 and
+   and every kernel shape one that phases 3, 3c, 4, 4b and 4c hold (phases 4 and
    4b include the shapes of one row a rank);
 19. slices F2 and G, after phase 18a in processes of its own: (a) two gloo
    ranks on cuda:0 as mesh (data 1, fsdp 2), each holding both rows of the
@@ -188,7 +203,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    moments), what the UNet holds between steps (no sharded tensor), the
    peak a rank against phase 18a's one-process run on the same rows,
    `step_launches(15)` a step and every kernel shape one that phases 3, 3c,
-   4 and 4b hold; (b) the fp32 step from sharded state against 18a's
+   4, 4b and 4c hold; (b) the fp32 step from sharded state against 18a's
    reference process, within `DP_BOUNDS`; (c) that state's checkpoint,
    saved by the group, restored into zeroed shards (equal to the bit) and
    one more step; then (d) `tools/export_roundtrip` at full width on the
@@ -205,7 +220,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    256x256 with the UNets one block a level, and the tiny Marigold single
    step and SD2 train steps of the CPU tests; each output within the port's
    CPU-vs-JAX bound plus the card-vs-CPU bound of phases 5 and 7
-   (`card_bounds`), every one of kernels 1-8 launched (counts printed); then
+   (`card_bounds`), every one of kernels 1-8 and the GroupNorm apply
+   launched (counts printed); then
    the card goldens' Marigold and GeoWizard in bf16, max |delta| against the
    fp32 goldens printed, unbounded.
 
@@ -247,6 +263,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -351,6 +368,7 @@ VKITTI_HW = (352, 1216)  # the VKITTI2 reader's KITTI-benchmark crop: one batch 
 VKITTI_ENCODER_PAIRS, VKITTI_DECODER_PAIRS = vae_pairs(*VKITTI_HW)
 VAE_PAIRS = sum(ENCODER_PAIRS.values()) + sum(DECODER_PAIRS.values())  # 48
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 GEO_ATTN_CASES = [  # (B, L, N, D): GeoWizard's joint self-attention (2L tokens), then ragged ones
     (1, 18432, 8, 40),  # 768x768: level 0 (the tiles: 64 rows), level 1, level 2, mid block
@@ -375,21 +393,99 @@ GEO_SITES = {(768, 768): 18, (576, 768): 17}  # ... per 768x768 / 576x768 reques
 GEO_MH_SITES = 5  # the d=40 sites of a 768x768 request, under E2EFT_FA_HP=2
 
 
+@functools.lru_cache(maxsize=None)
+def norm_visits(part: str, b: int, hw: tuple, fused: bool = False, config=None) -> tuple:
+    """The (B, C, H, W) input of each standalone GroupNorm, in order, that one
+    forward of `part` ("unet", "encoder" or "decoder") visits at batch b and
+    an hw image: the GroupNormAct modules of the module tree record their
+    input, on the meta device (no memory, no kernel). `fused`: the fused
+    VAE, whose ResnetBlocks run their two GroupNorms inside the GN -> conv
+    pairs, outside this route. `config`: a UNetConfig or VAEConfig (default
+    SD2's / the SD VAE's)."""
+    from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
+    from diffusion_e2e_ft_tpu_torch.models.layers import GroupNormAct, ResnetBlock
+
+    h, w = hw[0] // 8, hw[1] // 8
+    with torch.device("meta"):
+        if part == "unet":
+            c = config or UNetConfig.sd2()
+            model = UNet2DCondition(c)
+            labels = (torch.empty(b, c.class_embed_proj_dim),) if c.class_embed_proj_dim else ()
+            run = lambda: model(torch.empty(b, c.in_channels, h, w), torch.full((b,), 999),  # noqa: E731
+                                torch.empty(b, 77, c.cross_attention_dim), *labels)
+        else:
+            c = dataclasses.replace(config or VAEConfig(), fused_gn_conv=False)
+            model = AutoencoderKL(c)
+            run = ((lambda: model.encode_mean(torch.empty(b, c.in_channels, *hw))) if part == "encoder"
+                   else (lambda: model.decode(torch.empty(b, c.latent_channels, h, w))))
+    paired = {id(n) for m in model.modules() if isinstance(m, ResnetBlock) for n in (m.norm1, m.norm2)} if fused \
+        else set()
+    seen: list = []
+
+    def visit(module, x):  # a GroupNorm keeps its input's shape: record it and skip the math on meta tensors
+        if id(module) not in paired:
+            seen.append(tuple(x.shape))
+        return x
+
+    forward, GroupNormAct.forward = GroupNormAct.forward, visit
+    try:
+        with torch.no_grad(), torch.device("meta"):
+            run()
+    finally:
+        GroupNormAct.forward = forward
+    return tuple(seen)
+
+
+def norm_count(part: str, fused: bool = False, config=None) -> int:
+    """Standalone GroupNorms (2 launches each on the card) of one forward of `part`."""
+    return len(norm_visits(part, 2, (256, 256), fused, config))  # batch 2: a joint-attention pair
+
+
+def request_norms(chunks: int, steps: int, unet_config=None, vae_config=None) -> int:
+    """Standalone GroupNorms of one serving request (Marigold or GeoWizard):
+    each chunk of members encodes once, runs the UNet `steps` times and
+    decodes once, with the unfused VAE."""
+    return chunks * (steps * norm_count("unet", config=unet_config) + norm_count("encoder", config=vae_config)
+                     + norm_count("decoder", config=vae_config))
+
+
+def geo_request_norms(chunks: int = 1, steps: int = 1) -> int:
+    """`request_norms` of GeoWizard's UNet (SD1.5 widths, the class embedding, joint attention)."""
+    from diffusion_e2e_ft_tpu_torch.models import UNetConfig
+
+    return request_norms(chunks, steps, UNetConfig.geowizard())
+
+
+def gn_route(n: int) -> dict:
+    """The GroupNorm kernels' launches of n standalone GroupNorms: statistics, then apply."""
+    return {"gn_channel_stats": n, "gn_apply": n}
+
+
 # Kernel launches of one train step with UNet checkpointing: the frozen
 # encoder's mid attention takes the plain forward; each UNet kernel site runs
 # forward+LSE twice (the checkpoint recomputes it) and the backward once; the
 # decoder's mid attention runs forward+LSE and the backward once. With the
 # fused VAE (`gn`: "v1" or "v2", None for unfused) every GN -> conv pair of
 # the encoder and the decoder launches once; the backward recomputes the
-# plain composite. GeoWizard's E2E step launches the same (its decode is one
-# call at 2B); its diffusion-loss step (`e2e=False`) decodes nothing and
-# encodes twice (the image, then the GT geometry at 2B).
-def step_launches(unet_sites: int, gn: Optional[str] = "v1", e2e: bool = True) -> dict:
-    pairs = VAE_PAIRS if e2e else 2 * sum(ENCODER_PAIRS.values())
+# plain composite. Every standalone GroupNorm launches the GroupNorm route
+# once a forward (statistics + apply; its backward recomputes the plain
+# version): the UNet's twice (the checkpoint's recompute), the encoder's and
+# the decoder's once; `decode_checkpoint` runs the decode twice.
+# GeoWizard's E2E step launches the same (its decode is one call at 2B); its
+# diffusion-loss step (`e2e=False`) decodes nothing and encodes twice (the
+# image, then the GT geometry at 2B). `unet_config`: the UNet's config,
+# when it is not SD2's.
+def step_launches(unet_sites: int, gn: Optional[str] = "v1", e2e: bool = True, unet_config=None,
+                  decode_checkpoint: bool = False) -> dict:
+    decodes = e2e * (1 + decode_checkpoint)
+    pairs = decodes * sum(DECODER_PAIRS.values()) + (1 if e2e else 2) * sum(ENCODER_PAIRS.values())
+    fused = gn is not None
+    route = (2 * norm_count("unet", config=unet_config) + (1 if e2e else 2) * norm_count("encoder", fused)
+             + decodes * norm_count("decoder", fused))
     return {"flash_attention_fwd": 1 if e2e else 2, "flash_attention_fwd_mh": 0,
-            "flash_attention_fwd_lse": 2 * unet_sites + e2e, "flash_attention_bwd_dq": unet_sites + e2e,
-            "flash_attention_bwd_dkv": unet_sites + e2e, "gn_channel_stats": pairs * (gn == "v1"),
-            "gn_silu_conv3x3": pairs * (gn == "v1"), "gn_silu_conv3x3_v2": pairs * (gn == "v2")}
+            "flash_attention_fwd_lse": 2 * unet_sites + decodes, "flash_attention_bwd_dq": unet_sites + e2e,
+            "flash_attention_bwd_dkv": unet_sites + e2e, "gn_channel_stats": pairs * (gn == "v1") + route,
+            "gn_apply": route, "gn_silu_conv3x3": pairs * (gn == "v1"), "gn_silu_conv3x3_v2": pairs * (gn == "v2")}
 
 
 UNET_SITES_256 = 10  # UNet self-attention sites in the kernels' envelope at 256x256 (1024 and 256 tokens)
@@ -503,10 +599,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def roofline(flops: float, nbytes: float) -> dict:
+def roofline(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations over
-    the bf16 peak and the bytes over the HBM rate."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    their peak (default bf16's) and the bytes over the HBM rate."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -955,6 +1051,192 @@ def gn_times(gc, gn, x, gw, gb, weight, bias, silu) -> dict:
     return row
 
 
+# Phase 4c: the standalone GroupNorms' route (statistics + apply) at every shape that the paths driven below
+# send it, at the published widths: serving, the ensembles and the eval frames with the unfused VAE, and the
+# train steps with the fused VAE (whose GN -> conv pairs take kernels 7-8; the fused visits are a subset of the
+# unfused ones at the same batch). (label, UNet config or None for SD2's, image hw, UNet batches, encoder
+# batches, decoder batches, fused); an ensemble's batch is `find_batch_size`'s, as its request takes it.
+def route_paths() -> list:
+    from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
+
+    base = MarigoldPipeline.find_batch_size(BASELINE["ensemble_size"], max(BASELINE_HW))
+    lcm = MarigoldPipeline.find_batch_size(LCM_REQUEST["ensemble_size"], max(LCM_HW))
+    geo = 2 * GEO_ENSEMBLE["batch_size"]  # the joint UNet and the decode take both halves of 5 members
+    return [
+        ("Marigold 768x768", None, (768, 768), (1,), (1,), (1,), False),
+        ("Marigold 576x768", None, (576, 768), (1,), (1,), (1,), False),
+        # and the mesh's ensembles (phase 18b), the export round trip and one row a rank of phase 18a's steps
+        ("NYU 480x640", None, NYU_HW, (1,), (1,), (1,), False),
+        ("KITTI 352x1216", None, KITTI_HW, (1,), (1,), (1,), False),
+        ("baseline 480x640", None, BASELINE_HW, (base,), (1,), (base,), False),
+        ("LCM 768x768", None, LCM_HW, (lcm,), (1,), (lcm,), False),
+        ("GeoWizard 768x768", "geowizard", (768, 768), (2,), (1,), (2,), False),
+        ("GeoWizard 576x768", "geowizard", (576, 768), (2,), (1,), (2,), False),
+        ("GeoWizard ensemble 576x768", "geowizard", GEO_ENSEMBLE_HW, (geo,), (1,), (geo,), False),
+        ("GeoWizard NYU 480x640", "geowizard", NYU_HW, (2,), (1,), (2,), False),
+        # the parity and golden runs: Marigold at batch 1 and phase 14's 3-member batch, GeoWizard's pair
+        ("Marigold 256x256", None, (256, 256), (1, 3), (1,), (1, 3), False),
+        ("GeoWizard 256x256", "geowizard", (256, 256), (2,), (1,), (2,), False),
+        ("GeoWizard 512x512", "geowizard", (512, 512), (2,), (1,), (2,), False),
+        ("SD2 train 480x640 bs 2", None, (480, 640), (2,), (2,), (2,), True),
+        ("SD2 train 480x640 bs 2, unfused VAE", None, (480, 640), (2,), (2,), (2,), False),  # the A/B's other arm
+        ("SD2 VKITTI2 train 352x1216 bs 2", None, VKITTI_HW, (2,), (2,), (2,), True),
+        # the joint step's UNet and decode at 2B; the diffusion-loss step encodes the GT geometry at 2B too
+        ("GeoWizard joint train 480x640 bs 2", "geowizard", (480, 640), (4,), (2, 4), (4,), True),
+    ]
+
+
+ROUTE_TIMED = "Marigold 768x768"  # the slice's main path: its shapes are timed
+
+
+def route_visits(path) -> dict:
+    """{(B, C, H, W): standalone GroupNorms a forward of the path visits there}: UNet, encoder, decoder, at
+    each of their batches."""
+    from diffusion_e2e_ft_tpu_torch.models import UNetConfig
+
+    _, unet, hw, bu, be, bd, fused = path
+    config = UNetConfig.geowizard() if unet == "geowizard" else None
+    visits = [norm_visits("unet", b, hw, config=config) for b in bu]
+    visits += [norm_visits("encoder", b, hw, fused) for b in be] + [norm_visits("decoder", b, hw, fused) for b in bd]
+    out: dict = {}
+    for shape in (s for part in visits for s in part):
+        out[shape] = out.get(shape, 0) + 1
+    return out
+
+
+@functools.cache
+def route_shapes() -> frozenset:
+    return frozenset(shape for path in route_paths() for shape in route_visits(path))
+
+
+def phase_gn_route() -> dict:
+    """Phase 4c: `group_norm_kernel` (the statistics kernel, then the apply
+    kernel) against `group_norm_reference` in fp32 on the same values, and
+    the apply kernel alone against `group_norm_apply_reference` on the
+    kernel's sums, at every shape of `route_shapes()`, fp32 and bf16 x (the
+    affine fp32, or bf16 as a bf16 module holds it, in turns), with and
+    without the SiLU in turns, a non-zero bias; two calls for identical bits.
+    Then, at the Marigold 768x768 request's shapes in bf16 (bf16 affine, as
+    serving holds it), CUDA events: the route, the statistics and the apply
+    alone (calls back to back), the plain version and the library's
+    `F.group_norm` (+ `F.silu`), beside their bounds, and their sums over one
+    request's visits."""
+    from diffusion_e2e_ft_tpu_torch.kernels import groupnorm as gn
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale + shift
+
+    eps = 1e-6
+    worst = {"gn_channel_stats": 0.0, "gn_apply": 0.0}
+    shapes = sorted(route_shapes())
+    paths = route_paths()
+    timed = route_visits(next(p for p in paths if p[0] == ROUTE_TIMED))
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bound = GN_BOUND[dtype]
+        top = {"route": 0.0, "apply": 0.0}
+        for i, shape in enumerate(shapes):
+            c = shape[1]
+            silu = i % 3 != 2
+            affine = torch.bfloat16 if dtype == torch.bfloat16 and (i % 2 == 0 or shape in timed) else torch.float32
+            x = randn(*shape, shift=0.5).to(dtype)
+            w, b = randn(c, scale=0.2, shift=1.0).to(affine), randn(c, scale=0.5).to(affine)
+            stats = gn.channel_stats(x)
+            out, again = gn.group_norm_kernel(x, w, b, 32, eps, silu), gn.group_norm_kernel(x, w, b, 32, eps, silu)
+            applied = gn.group_norm_apply(x, stats, w, b, 32, eps, silu)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and out.shape == x.shape and bool(torch.isfinite(out).all()),
+                  f"group norm route {out.dtype} {tuple(out.shape)} at {shape} {dtype}")
+            check(torch.equal(out, again) and torch.equal(out, applied),
+                  f"group norm route: two calls differ at {shape} {dtype}")
+            # one fp32 reference at a time: the largest shape, [10, 256, 576, 768], holds 4.5 GB in fp32
+            rel = rel_err(out, gn.group_norm_reference(x.float(), w.float(), b.float(), 32, eps, silu))[1]
+            aerr, arel = rel_err(applied, gn.group_norm_apply_reference(x.float(), stats, w.float(), b.float(), 32,
+                                                                         eps, silu))
+            serr = rel_err(stats, gn.channel_stats_reference(x))
+            check(rel <= bound and arel <= bound and serr[1] <= bound,
+                  f"group norm route at {shape} {dtype} (affine {affine}, silu {silu}): max|d|/max|plain| route "
+                  f"{rel}, apply {arel}, statistics {serr[1]} > {bound}")
+            worst["gn_apply"] = max(worst["gn_apply"], aerr)
+            worst["gn_channel_stats"] = max(worst["gn_channel_stats"], serr[0])
+            top["route"], top["apply"] = max(top["route"], rel), max(top["apply"], arel)
+            if dtype == torch.bfloat16 and shape in timed:
+                rows[shape] = route_times(gn, x, stats, w, b, eps, silu=True, count=shape == max(timed, key=math.prod))
+            del x, stats, out, again, applied
+        # the dispatcher on a channels_last x (the VAE encoder's layout when its input is a permuted NHWC image)
+        x = randn(1, 128, 96, 128, shift=0.5).to(dtype).to(memory_format=torch.channels_last)
+        w, b = randn(128, scale=0.2, shift=1.0), randn(128, scale=0.5)
+        err = rel_err(gn.group_norm_silu(x, w, b, 32, eps), gn.group_norm_reference(x.float(), w, b, 32, eps))[1]
+        check(err <= bound, f"group_norm_silu on a channels_last x: max|d|/max|plain| {err} > {bound}")
+        print(f"[gn-route] {str(dtype):14s} at {len(shapes)} shapes of {len(paths)} paths: max|d|/max|plain| "
+              f"route {top['route']:.2e}, apply alone {top['apply']:.2e}, the dispatcher on a channels_last x "
+              f"{err:.2e} (bound {bound}); two calls bit-identical",
+              flush=True)
+    torch.cuda.empty_cache()
+    names = ("route", "stats", "apply", "plain", "library", "library_apply")
+    first = rows[max(rows, key=math.prod)]
+    per_request = {k: sum(n * rows[s][k] for s, n in timed.items()) for k in (*names, "bound_ms", "apply_bound_ms")}
+    for shape in sorted(rows, key=lambda s: -math.prod(s)):
+        r = rows[shape]
+        print(f"[gn-route] bf16 {list(shape)} x{timed[shape]} a request: route {r['route']:.4f} ms (events "
+              f"{r['route_events']:.4f}) = stats {r['stats']:.4f} + apply {r['apply']:.4f} (bound "
+              f"{r['apply_bound_ms']:.4f}, {r['apply_bound_ms'] / r['apply']:.2f} of it); plain {r['plain']:.4f}, "
+              f"F.group_norm + F.silu {r['library']:.4f}, route bound {r['bound_ms']:.4f}; the apply's library "
+              f"call, torch.addcmul on the folded a, b (no SiLU), {r['library_apply']:.4f}", flush=True)
+    print(f"[gn-route] per {ROUTE_TIMED} request ({sum(timed.values())} GroupNorms, bf16, back-to-back events): "
+          + ", ".join(f"{k} {per_request[k]:.3f} ms" for k in names)
+          + f"; bound {per_request['bound_ms']:.3f} (apply {per_request['apply_bound_ms']:.3f}); launches a call: "
+          f"route {first['route_launches']}, plain {first['plain_launches']}; phase 4c in "
+          f"{time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"gn_apply": {"max_abs_err": worst["gn_apply"], "shape": first["shape"], "ms": first["apply"],
+                         "plain_ms": first["apply_plain"], "library_ms": first["library_apply"],
+                         "library": "torch.addcmul(b, x, a) on the folded a, b: the affine alone, without the SiLU",
+                         "bound_ms": first["apply_bound_ms"], "bound_by": first["apply_bound_by"],
+                         "route_ms": first["route"], "route_plain_ms": first["plain"],
+                         "route_library_ms": first["library"], "route_library": "F.group_norm + F.silu",
+                         "route_bound_ms": first["bound_ms"],
+                         "per_request": {f"{k}_ms": per_request[k] for k in names}
+                         | {"bound_ms": per_request["bound_ms"], "apply_bound_ms": per_request["apply_bound_ms"]}},
+            "gn_channel_stats_route_err": worst["gn_channel_stats"]}
+
+
+def route_times(gn, x, stats, w, b, eps, silu: bool, count: bool) -> dict:
+    """bf16 times at one route shape (calls back to back, `batch_ms`; the
+    route also as events around one call): the route, the statistics, the
+    apply, their plain versions, `F.group_norm` + `F.silu` (the route's
+    library call) and `torch.addcmul` on the folded a, b (the apply's, without
+    the SiLU); with the bounds: the apply reads
+    x and writes y (2 |x| bytes; 2 fp32 operations a value, 4 more for the
+    SiLU), the route also reads x for the statistics (3 |x|). `count`: also
+    the kernels a call of the route and of the plain version launch."""
+    itemsize, n = x.element_size(), x.numel()
+    affine = 2 * x.shape[1] * w.element_size() + x.shape[0] * 2 * x.shape[1] * 4
+    apply_bound = roofline((2 + 4 * silu) * n, 2 * n * itemsize + affine, PEAK_FP32_FLOPS)
+    route_bound = roofline((5 + 4 * silu) * n, 3 * n * itemsize + affine, PEAK_FP32_FLOPS)
+    # the library's one-call apply: x * a + b with the same folded a, b (in x's dtype), without the SiLU
+    fold = gn.fold_stats(stats, w, b, 32, eps, x[0, 0].numel()).to(x.dtype)
+    a_lib, b_lib = (fold[:, k].reshape(*x.shape[:2], *[1] * (x.ndim - 2)) for k in (0, 1))
+    fns = {"route": lambda: gn.group_norm_kernel(x, w, b, 32, eps, silu), "stats": lambda: gn.channel_stats(x),
+           "apply": lambda: gn.group_norm_apply(x, stats, w, b, 32, eps, silu),
+           "plain": lambda: gn.group_norm_reference(x, w, b, 32, eps, silu),
+           "apply_plain": lambda: gn.group_norm_apply_reference(x, stats, w, b, 32, eps, silu),
+           "library": lambda: F.silu(F.group_norm(x, 32, w, b, eps)),
+           "library_apply": lambda: torch.addcmul(b_lib, x, a_lib)}
+    out = {k: batch_ms(f) for k, f in fns.items()}
+    out["route_events"] = time_ms(fns["route"])
+    out.update(shape=list(x.shape), bound_ms=route_bound["bound_ms"], apply_bound_ms=apply_bound["bound_ms"],
+               apply_bound_by=apply_bound["bound_by"])
+    if count:  # the route's from its own counts (exact); the plain version's CUDA kernels from torch.profiler
+        gn.reset_launches()
+        fns["route"]()
+        out["route_launches"], out["plain_launches"] = sum(gn.launches.values()), len(device_kernels(fns["plain"]))
+    return out
+
+
 def phase_e2e_parity(fa):
     from diffusion_e2e_ft_tpu_torch.models import UNetConfig, VAEConfig
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
@@ -973,13 +1255,15 @@ def phase_e2e_parity(fa):
         reset_launches()
         got = gpu.infer(rgb.cuda(), normals=task == "normals")
         torch.cuda.synchronize()
-        launches = fa.launches["flash_attention_fwd"]
+        launches = read_launches()
         err = (got.cpu() - ref).abs().max().item()
         inside = ((ref > 0) & (ref < 1)).float().mean().item()
         bound = E2E_BOUNDS[task]
         print(f"[e2e] fp32 256x256 {task}, gpu vs cpu: max|d|={err:.3e} (bound {bound}), "
               f"kernel launches {launches}, values in (0, 1): {inside:.3f}", flush=True)
-        check(launches == SITES_256, f"expected {SITES_256} kernel launches at 256x256, got {launches}")
+        want_launches = {**dict.fromkeys(launches, 0), "flash_attention_fwd": SITES_256,
+                         **gn_route(request_norms(1, 1))}
+        check(launches == want_launches, f"256x256 launches {launches}, expected {want_launches}")
         check(bool(torch.isfinite(got).all()), f"gpu {task} not finite")
         check(err <= bound, f"fp32 pipeline {task} gpu vs cpu max|d| {err} > {bound}")
     return gpu
@@ -1027,9 +1311,9 @@ def write_checkpoint(path: str, pipe, text_config) -> None:
     })
 
 
-def phase_serving(fa, fp32_pipe, ckpt: str) -> int:
+def phase_serving(fa, fp32_pipe, ckpt: str) -> dict:
     """Slice A's main path. Writes the fp32 pipeline's weights to `ckpt` (an
-    HF directory that phase 15 loads again)."""
+    HF directory that phase 15 loads again). Returns the path's launches."""
     from diffusion_e2e_ft_tpu_torch.cli.serve import PipelineService
     from diffusion_e2e_ft_tpu_torch.models.clip import CLIPTextConfig
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
@@ -1053,17 +1337,20 @@ def phase_serving(fa, fp32_pipe, ckpt: str) -> int:
     images = {hw: rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _, hw in requests}
     latencies: dict = {}
 
+    per_request = {"flash_attention_fwd": SITES_768, **gn_route(request_norms(1, 1))}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # the main path's run starts here
     for task, hw in requests:
-        before = fa.launches["flash_attention_fwd"]
+        before = read_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = service.predict(images[hw], normals=task == "normals")
         torch.cuda.synchronize()
         latencies.setdefault((task, hw), []).append((time.perf_counter() - t0) * 1e3)
-        done = fa.launches["flash_attention_fwd"] - before
-        check(done == SITES_768, f"{task} {hw}: {done} kernel launches, expected {SITES_768}")
+        after = read_launches()
+        done = {k: after[k] - before[k] for k in after}
+        check(done == {**dict.fromkeys(done, 0), **per_request},
+              f"{task} {hw}: launches {done}, expected {per_request}")
         check(pred.shape == (hw + (3,) if task == "normals" else hw), f"{task} {hw}: shape {pred.shape}")
         check(bool(np.isfinite(pred).all()), f"{task} {hw}: non-finite output")
         if task == "depth":
@@ -1078,10 +1365,11 @@ def phase_serving(fa, fp32_pipe, ckpt: str) -> int:
               f"(median {statistics.median(ms):.2f})", flush=True)
     print(f"[serve] peak device memory {peak:.3f} GiB; kernel launches {launches} "
           f"over {len(requests)} requests", flush=True)
-    # serving needs no gradient: the plain forward kernel only, and no GN -> conv kernel (fused_gn_conv=False)
-    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": SITES_768 * len(requests)},
+    # serving needs no gradient: the plain forward kernel and the GroupNorm route only, and no GN -> conv kernel
+    # (fused_gn_conv=False)
+    check(launches == {**dict.fromkeys(launches, 0), **{k: n * len(requests) for k, n in per_request.items()}},
           f"serving launched {launches}")
-    return launches["flash_attention_fwd"]
+    return launches
 
 
 def synthetic_batch(rng, b: int, h: int, w: int, modality: str, invalid: float) -> dict:
@@ -1374,8 +1662,9 @@ def phase_geowizard_parity(fa):
             check(bool(torch.isfinite(got[task]).all()), f"gpu GeoWizard {task} not finite")
             check(err <= E2E_BOUNDS[task], f"fp32 GeoWizard {size} {task} gpu vs cpu max|d| {err} > {E2E_BOUNDS[task]}")
         print(f"[geo-e2e] {size}x{size} kernel launches {launches}", flush=True)
-        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": sites},
-              f"GeoWizard {size}x{size} launched {launches}, expected {sites} forward")
+        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": sites, **gn_route(geo_request_norms())},
+              f"GeoWizard {size}x{size} launched {launches}, expected {sites} forward and "
+              f"{geo_request_norms()} GroupNorm routes")
     return gpu
 
 
@@ -1427,7 +1716,7 @@ def phase_geowizard_serving(fa, fp32_pipe) -> tuple:
         latencies.setdefault((hw, domain), []).append((time.perf_counter() - t0) * 1e3)
         after = read_launches()
         done = {k: after[k] - before[k] for k in after}
-        check(done == {**dict.fromkeys(done, 0), "flash_attention_fwd": GEO_SITES[hw]},
+        check(done == {**dict.fromkeys(done, 0), "flash_attention_fwd": GEO_SITES[hw], **gn_route(geo_request_norms())},
               f"GeoWizard {hw} {domain}: launches {done}, expected {GEO_SITES[hw]} forward")
         check(out.depth_np.shape == hw and out.normal_np.shape == hw + (3,), f"{hw}: shapes "
               f"{out.depth_np.shape} {out.normal_np.shape}")
@@ -1447,7 +1736,7 @@ def phase_geowizard_serving(fa, fp32_pipe) -> tuple:
     launches = read_launches()  # ... and ends here
     done = {k: launches[k] - before[k] for k in launches}
     want = {**dict.fromkeys(done, 0), "flash_attention_fwd_mh": GEO_MH_SITES,
-            "flash_attention_fwd": GEO_SITES[(768, 768)] - GEO_MH_SITES}
+            "flash_attention_fwd": GEO_SITES[(768, 768)] - GEO_MH_SITES, **gn_route(geo_request_norms())}
     check(done == want, f"E2EFT_FA_HP=2 request launched {done}")
     ref = outputs[((768, 768), "indoor")]
     mh_err = max(np.abs(mh.depth_np - ref.depth_np).max(), np.abs(mh.normal_np - ref.normal_np).max())
@@ -1780,7 +2069,8 @@ def phase_slice_c_parity(fa) -> None:
               f"max|d|={err:.3e} (bound {bound}), kernel launches {launches['flash_attention_fwd']}", flush=True)
         check(bool(torch.isfinite(got).all()), f"gpu {kind} depth not finite")
         check(err <= bound, f"fp32 {kind} gpu vs cpu max|d| {err} > {bound}")
-        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": expect}, f"{kind}: launches {launches}")
+        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": expect,
+                           **gn_route(request_norms(1, SLICE_C_STEPS))}, f"{kind}: launches {launches}")
     reset_launches()
     got = gpu.infer(rgb.cuda(), SLICE_C_STEPS, latent0=ens_latent0.cuda())
     torch.cuda.synchronize()
@@ -1926,6 +2216,7 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     members = BASELINE["ensemble_size"]
     batch = pipe.find_batch_size(members, max(BASELINE_HW))
     expect = request_launches(-(-members // batch), BASELINE["denoising_steps"], UNET_SITES_480x640)
+    norms = request_norms(-(-members // batch), BASELINE["denoising_steps"])  # the GroupNorm route's, a request
     bfgs = []
     with traced_bfgs("phase15a", times=bfgs):
         reset_launches()  # the main path's run starts here
@@ -1961,8 +2252,9 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     check(lcm.scheduler_type == "lcm" and lcm.scheduler_config == config, f"LCM load: {lcm.scheduler_type}")
     image = rng.integers(0, 256, (*LCM_HW, 3), dtype=np.uint8)
     members = LCM_REQUEST["ensemble_size"]
-    lcm_expect = request_launches(-(-members // lcm.find_batch_size(members, max(LCM_HW))),
-                                  LCM_REQUEST["denoising_steps"], UNET_SITES_768)
+    lcm_chunks = -(-members // lcm.find_batch_size(members, max(LCM_HW)))
+    lcm_expect = request_launches(lcm_chunks, LCM_REQUEST["denoising_steps"], UNET_SITES_768)
+    lcm_norms = request_norms(lcm_chunks, LCM_REQUEST["denoising_steps"])
     torch.cuda.reset_peak_memory_stats()
     with traced_bfgs("phase15b"):
         results = timed_requests(lcm, image, [dict(LCM_REQUEST, seed=s) for s in (0, 0, 1)])
@@ -1977,7 +2269,8 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     check(np.array_equal(results[0][0].depth_np, results[1][0].depth_np), "LCM: same seed, different bits")
     check(not np.array_equal(results[0][0].depth_np, results[2][0].depth_np), "LCM: another seed, same depth")
     check(launches == {**dict.fromkeys(launches, 0),
-                       "flash_attention_fwd": len(warmup + runs) * expect + len(results) * lcm_expect},
+                       "flash_attention_fwd": len(warmup + runs) * expect + len(results) * lcm_expect,
+                       **gn_route(len(warmup + runs) * norms + len(results) * lcm_norms)},
           f"slice C's Marigold requests launched {launches}")
     return launches["flash_attention_fwd"]
 
@@ -2004,7 +2297,9 @@ def phase_geowizard_ensemble(fa, pipe) -> int:
           f"batch {batch}: latency ms {[round(t, 1) for _, t, _ in results]}; kernel 1 launches a request "
           f"{[n for _, _, n in results]} (expected {expect}); peak device memory {peak:.3f} GiB", flush=True)
     check(all(n == expect for _, _, n in results), f"GeoWizard ensemble launches {[n for _, _, n in results]}")
-    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * expect}, f"launched {launches}")
+    norms = geo_request_norms(-(-members // batch), GEO_ENSEMBLE["denoising_steps"])
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * expect, **gn_route(2 * norms)},
+          f"launched {launches}")
     check(np.array_equal(results[0][0].normal_np, results[1][0].normal_np), "GeoWizard: same seed, different bits")
     return launches["flash_attention_fwd"]
 
@@ -2327,9 +2622,9 @@ def phase_eval_path(fa, ckpt: str) -> int:
         print(f"[eval] run_marigold --profile_dir: trace.json {len(trace) / 2**20:.1f} MiB with kernel 1's device "
               f"events", flush=True)
     launches = read_launches()  # ... and ends here
-    expect = (NYU_FRAMES + 2 + 2 + 4) * EVAL_SITES  # the dumps, the normals, two run_marigold runs
-    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": expect},
-          f"the eval path launched {launches}, expected {expect} kernel 1")
+    frames = NYU_FRAMES + 2 + 2 + 4  # the dumps, the normals, two run_marigold runs
+    expect = {"flash_attention_fwd": frames * EVAL_SITES, **gn_route(frames * request_norms(1, 1))}
+    check(launches == {**dict.fromkeys(launches, 0), **expect}, f"the eval path launched {launches}, expected {expect}")
     return launches["flash_attention_fwd"]
 
 
@@ -2363,7 +2658,8 @@ def phase_eval_geowizard(fa, geo_pipe) -> int:
             check("model_type: geowizard" in f.read(), "GeoWizard dump: arguments.txt")
     print(f"[eval] cli.infer --model_type geowizard: {seconds:.1f} s with the checkpoint's load", flush=True)
     print_frames("GeoWizard NYU", NYU_HW, frames, decoders)
-    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * EVAL_SITES}, f"launched {launches}")
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * EVAL_SITES,
+                       **gn_route(2 * geo_request_norms())}, f"launched {launches}")
     return launches["flash_attention_fwd"]
 
 
@@ -2679,13 +2975,14 @@ def instrumented_training(steps: list, reads: dict, waits: list):
 
 
 def held_shapes() -> dict:
-    """{kernel: the shapes phases 3, 3c, 4 and 4b hold it at against its plain
-    version}: attention (B, L, N, D); GroupNorm statistics and GN -> conv (B, C, H, W)."""
-    gn = {case[:4] for case in GN_CASES}
+    """{kernel: the shapes phases 3, 3c, 4, 4b and 4c hold it at against its
+    plain version}: attention (B, L, N, D); the GroupNorm kernels and GN ->
+    conv (B, C, H, W)."""
+    gn, route = {case[:4] for case in GN_CASES}, route_shapes()
     bwd = set(BWD_CASES)
     return {"flash_attention_fwd": set(ATTN_CASES) | set(eval_attention_cases()) | set(slice_c_attention_cases()),
             "flash_attention_fwd_lse": bwd, "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd,
-            "gn_channel_stats": gn, "gn_silu_conv3x3": gn, "gn_silu_conv3x3_v2": gn}
+            "gn_channel_stats": gn | route, "gn_apply": route, "gn_silu_conv3x3": gn, "gn_silu_conv3x3_v2": gn}
 
 
 def phase_train_from_trees(ckpt: str, hypersim: str, vkitti: str) -> dict:
@@ -3125,10 +3422,8 @@ def phase_trainer_options(unet, vae, empty) -> None:
               f"{D3_LOSS_BOUND}); launches a step {r['launches']}", flush=True)
         first = abs(r["losses"][0] - default["losses"][0]) / abs(default["losses"][0])  # the same forward
         check(first <= 1e-6 and rel <= D3_LOSS_BOUND, f"{name}: losses {r['losses']}")
-        want = step_launches(UNET_SITES_480x640)
-        if name == "vae_decode_checkpoint":  # the backward runs the decode again: its mid attention and pairs
-            want = {k: n + {"flash_attention_fwd_lse": 1, "gn_channel_stats": sum(DECODER_PAIRS.values()),
-                            "gn_silu_conv3x3": sum(DECODER_PAIRS.values())}.get(k, 0) for k, n in want.items()}
+        # vae_decode_checkpoint: the backward runs the decode again (its mid attention, pairs and GroupNorms)
+        want = step_launches(UNET_SITES_480x640, decode_checkpoint=name == "vae_decode_checkpoint")
         check(r["launches"] == want, f"{name}: launches {r['launches']}, expected {want}")
 
     cfg = dataclasses.replace(vae.config, fused_gn_conv=False)
@@ -3451,7 +3746,7 @@ def phase_goldens() -> dict:
     GeoWizard, again under `E2EFT_FA_HP=2`; the SD2 depth train step with
     the fused VAE, again under `E2EFT_GNCONV_IMPL=v2`) and the tiny Tier-1
     goldens of the main path (Marigold single step, the SD2 train step).
-    Every one of kernels 1-8 must launch. Then the card set's serving
+    Every one of kernels 1-8 and the GroupNorm apply must launch. Then the card set's serving
     goldens in bf16: max |d| against the fp32 goldens, printed (no bound).
     Returns the phase's launches."""
     R, P = load_test_module("_torch_golden"), load_test_module("_torch_golden_port")
@@ -3489,16 +3784,29 @@ def phase_goldens() -> dict:
               f"weights drawn and digest-checked in {time.perf_counter() - t0:.1f} s", flush=True)
         return mods
 
-    marigold = {"flash_attention_fwd": 2 * (GOLDEN_UNET_SITES + 2)}  # depth and normals
-    geowizard = {"flash_attention_fwd": GOLDEN_UNET_SITES + 2}
+    def configs(g) -> tuple:
+        """The golden's UNet and VAE configs, as the port's modules hold them."""
+        return P.new_module("unet", g.meta["unet"]).config, P.new_module("vae", g.meta["vae"]).config
+
+    def single_norms(g) -> int:
+        """Standalone GroupNorms of one single-step request of the golden's models (the GroupNorm route's)."""
+        return request_norms(1, 1, *configs(g))
+
     reset_launches()
-    g = R.Golden("marigold_single")  # tiny: no kernel site
-    held(g, P.single_step(g, P.marigold_pipeline(g, P.modules(g, dev), dev), ("_64", "_72x56")), "", {})
+    # tiny: no attention kernel site and no GN -> conv pair in the kernels' envelope (C % 128); every standalone
+    # GroupNorm takes the route, the fused VAE's pairs the plain composite
+    g = R.Golden("marigold_single")
+    held(g, P.single_step(g, P.marigold_pipeline(g, P.modules(g, dev), dev), ("_64", "_72x56")), "",
+         gn_route(4 * single_norms(g)))  # two images, depth and normals
     g = R.Golden("train_sd2")
+    unet_cfg, vae_cfg = configs(g)
+    step_norms = (2 * norm_count("unet", config=unet_cfg) + norm_count("encoder", True, vae_cfg)
+                  + norm_count("decoder", True, vae_cfg))
     held(g, {k: v for m in g.meta["modalities"] for k, v in P.train_step(g, P.modules(g, dev), f"{m}.", dev, m).items()},
-         "", {})
+         "", gn_route(len(g.meta["modalities"]) * step_norms))
 
     g = R.Golden("card_marigold")
+    marigold = {"flash_attention_fwd": 2 * (GOLDEN_UNET_SITES + 2), **gn_route(2 * single_norms(g))}  # depth, normals
     mods = weights_of(g)
     held(g, P.single_step(g, P.marigold_pipeline(g, mods, dev)), " fp32", marigold)
     bf16 = {k: copy.deepcopy(m) for k, m in mods.items()}
@@ -3508,7 +3816,9 @@ def phase_goldens() -> dict:
     check(g_train.meta["weights"] == g.meta["weights"] and all(
         np.array_equal(g_train.digests[p], g.digests[p]) for p in g.digests), "card_train's weights are not card_marigold's")
     initial = {n: p.detach().clone() for n, p in mods["unet"].named_parameters()}
-    held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v1", step_launches(GOLDEN_UNET_SITES))
+    card_unet = configs(g_train)[0]
+    held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v1",
+         step_launches(GOLDEN_UNET_SITES, unet_config=card_unet))
     with torch.no_grad():
         for n, p in mods["unet"].named_parameters():
             p.copy_(initial[n])
@@ -3516,7 +3826,7 @@ def phase_goldens() -> dict:
     os.environ["E2EFT_GNCONV_IMPL"] = "v2"
     try:
         held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v2",
-             step_launches(GOLDEN_UNET_SITES, "v2"))
+             step_launches(GOLDEN_UNET_SITES, "v2", unet_config=card_unet))
     finally:
         del os.environ["E2EFT_GNCONV_IMPL"]
     del mods
@@ -3524,13 +3834,15 @@ def phase_goldens() -> dict:
     torch.cuda.empty_cache()
 
     g = R.Golden("card_geowizard")
+    geowizard = {"flash_attention_fwd": GOLDEN_UNET_SITES + 2, **gn_route(single_norms(g))}
     mods = weights_of(g)
     pipe = P.geowizard_pipeline(mods, dev)
     held(g, P.geowizard(g, pipe, ensemble=False), " fp32", geowizard)
     os.environ["E2EFT_FA_HP"] = "2"
     try:
         held(g, P.geowizard(g, pipe, ensemble=False), " fp32 hp 2",
-             {"flash_attention_fwd_mh": GOLDEN_HP_SITES, "flash_attention_fwd": GOLDEN_UNET_SITES + 2 - GOLDEN_HP_SITES})
+             {**geowizard, "flash_attention_fwd_mh": GOLDEN_HP_SITES,
+              "flash_attention_fwd": GOLDEN_UNET_SITES + 2 - GOLDEN_HP_SITES})
     finally:
         del os.environ["E2EFT_FA_HP"]
     drift(g, P.geowizard(g, P.geowizard_pipeline({k: copy.deepcopy(m) for k, m in mods.items()}, dev, torch.bfloat16),
@@ -3568,6 +3880,7 @@ def main() -> int:
 
 
 def run(dp_work: str) -> int:
+    t_run = time.perf_counter()
     check(torch.cuda.device_count() == 1, f"expected one visible GPU, got {torch.cuda.device_count()}")
     from diffusion_e2e_ft_tpu_torch.kernels import _build
     from diffusion_e2e_ft_tpu_torch.kernels import flash_attention as fa
@@ -3595,9 +3908,17 @@ def run(dp_work: str) -> int:
     numbers.update(phase_backward(fa))
     phase_grad_route(fa)
     numbers.update(phase_gn_kernels())
+    route = phase_gn_route()
+    numbers["gn_apply"] = route["gn_apply"]
+    numbers["gn_channel_stats"]["max_abs_err"] = max(numbers["gn_channel_stats"]["max_abs_err"],
+                                                     route["gn_channel_stats_route_err"])
+    # every GroupNorm route launch of the in-process paths, phases 5 to 17 and the GeoWizard phases, is recorded:
+    # each must fall at a shape phase 4c held
+    route_record = contextlib.ExitStack()
+    recorded = route_record.enter_context(recorded_launches())
     with tempfile.TemporaryDirectory() as ckpt:
         # no reference kept to phase 5's weights; phase 15 loads them again from ckpt
-        launches = {"flash_attention_fwd": phase_serving(fa, phase_e2e_parity(fa), ckpt)}
+        launches = phase_serving(fa, phase_e2e_parity(fa), ckpt)
         torch.cuda.empty_cache()
         phase_slice_c_parity(fa)
         gc.collect()
@@ -3625,7 +3946,9 @@ def run(dp_work: str) -> int:
     unet, vae = phase_train_parity(fa, cpu.unet, cpu.vae, empty)
     del cpu
     trained = phase_train(unet, vae, empty)
-    launches.update({k: v for k, v in trained.items() if k != "flash_attention_fwd"})
+    for name, n in trained.items():  # kernel 1 counts the serving paths' launches only
+        if name != "flash_attention_fwd":
+            launches[name] += n
     phase_trainer_options(unet, vae, empty)  # slice D3
     save_weights(os.path.join(dp_work, "sd2.pt"), unet=unet, vae=vae, empty=empty)  # for phase 18a
     del unet, vae, empty
@@ -3660,6 +3983,12 @@ def run(dp_work: str) -> int:
     save_weights(os.path.join(dp_work, "geowizard.pt"), unet=geo_modules[0], vae=geo_modules[1],
                  encoder=geo_modules[2], dtype=torch.bfloat16)
     del geo_modules
+    route_record.close()
+    route_seen = {shape for name, shape in recorded if name == "gn_apply"}
+    check(route_seen <= route_shapes(), f"the GroupNorm route ran at {sorted(route_seen - route_shapes())}, shapes "
+          "phase 4c does not hold")
+    print(f"[gn-route] the in-process paths launched the route at {len(route_seen)} shapes, each held by phase 4c "
+          f"({len(route_shapes())} shapes)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(dp_work)  # slice F's main path, in processes of its own
@@ -3677,6 +4006,7 @@ def run(dp_work: str) -> int:
         "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention.py:374"),
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention.py:407"),
         "gn_channel_stats": ("groupnorm.cu", "groupnorm.py:88"),
+        "gn_apply": ("groupnorm.cu", "groupnorm.py:141-148 (XLA's apply after _stats_kernel; no Pallas kernel)"),
         "gn_silu_conv3x3": ("gn_conv.cu", "gn_conv.py:80"),
         "gn_silu_conv3x3_v2": ("gn_conv.cu", "gn_conv.py:209"),
     }
@@ -3688,6 +4018,7 @@ def run(dp_work: str) -> int:
         "launches": launches[name],
         **numbers[name],
     } for name, (source, replaces) in table.items()]
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_run:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -114,6 +114,8 @@ def load_library() -> ctypes.CDLL:
         "e2eft_flash_attention_bwd_dq": [ptr] * 7 + flash,  # q, k, v, dO, lse, delta, dq
         "e2eft_flash_attention_bwd_dkv": [ptr] * 8 + flash,  # q, k, v, dO, lse, delta, dk, dv
         "e2eft_gn_channel_stats": [ptr, ptr, i32, i32, i32, i64, ptr],  # x, out, dtype, B, C, n
+        # x, stats, w, b, out, dtype, affine dtype, B, C, n, groups, eps, silu
+        "e2eft_gn_apply": [ptr] * 5 + [i32, i32, i32, i32, i64, i32, f32, i32, ptr],
         # x, stats, gn weight, gn bias, w, bias, out, dtype, silu, B, C, Cout, H, W, groups, eps
         "e2eft_gn_silu_conv3x3": [ptr] * 7 + [i32] * 8 + [f32, ptr],
         # x, gn weight, gn bias, w, bias, out, stats, parts, dtype, silu, B, C, Cout, H, W, groups, eps

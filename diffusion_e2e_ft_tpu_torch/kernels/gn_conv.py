@@ -21,7 +21,8 @@ Kernels (CUDA C++ for sm_90a, see the sources' header notes for their design):
   a, b at each new image; in bf16 each tile runs v1's `wgmma` body.
   `v2_plan` mirrors its grid and parts rule.
 
-`fold_stats` is the fold in plain torch, the kernels' formula, for the tests.
+`fold_stats` (from `kernels/groupnorm.py`, re-exported here) is the fold in
+plain torch, the kernels' formula, for the tests.
 
 `gn_silu_conv3x3` dispatches by device and a shape-only envelope: a CPU tensor
 takes the plain composite `gn_conv_reference`; a CUDA tensor inside the
@@ -50,7 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from diffusion_e2e_ft_tpu_torch.kernels import _build
-from diffusion_e2e_ft_tpu_torch.kernels.groupnorm import channel_stats, check_kernel_operand, group_norm_silu
+from diffusion_e2e_ft_tpu_torch.kernels.groupnorm import (  # noqa: F401 (fold_stats: re-exported)
+    channel_stats, check_kernel_operand, fold_stats, group_norm_reference,
+)
 
 # Kernel launches since the last `reset_launches()`; the statistics kernel
 # counts in `groupnorm.launches`.
@@ -160,30 +163,17 @@ def gn_conv_reference(
 ) -> torch.Tensor:
     """The plain composite, as the JAX `_xla_gn_conv`: GroupNorm(+SiLU) with
     fp32 statistics cast to the compute dtype, conv3x3 SAME in the compute
-    dtype, then the bias and the residual in fp32."""
+    dtype, then the bias and the residual in fp32. Plain on every device: its
+    GroupNorm is `group_norm_reference`, never the GroupNorm kernels, so the
+    card holds kernels 7 and 8 against plain PyTorch."""
     dt = compute_dtype(x)
-    y = group_norm_silu(x.to(dt), gn_weight, gn_bias, groups, eps, silu)
+    y = group_norm_reference(x.to(dt), gn_weight, gn_bias, groups, eps, silu)
     out = F.conv2d(y, weight.to(dt), padding=1).float()
     if conv_bias is not None:
         out = out + conv_bias.float()[:, None, None]
     if residual is not None:
         out = out + residual.float()
     return out.to(dt)
-
-
-def fold_stats(
-    stats: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor, groups: int, eps: float, count: int
-) -> torch.Tensor:
-    """Per-channel sums [B, 2, C] over `count` values per channel -> fp32
-    [B, 2, C] (a, b) with GroupNorm(x) = x * a + b, as `gn_conv.py:151-162`."""
-    b, _, c = stats.shape
-    gs = c // groups
-    n = float(count * gs)
-    mean_g = stats[:, 0].reshape(b, groups, gs).sum(-1) / n
-    var_g = (stats[:, 1].reshape(b, groups, gs).sum(-1) / n - mean_g * mean_g).clamp_min(0.0)
-    inv_g = torch.rsqrt(var_g + eps)
-    a = inv_g.repeat_interleave(gs, dim=-1) * gn_weight.float()
-    return torch.stack([a, gn_bias.float() - mean_g.repeat_interleave(gs, dim=-1) * a], dim=1)
 
 
 def gn_conv_kernel(

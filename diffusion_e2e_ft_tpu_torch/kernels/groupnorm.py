@@ -1,21 +1,46 @@
-"""GroupNorm(+SiLU) in plain PyTorch with fp32 one-pass statistics, and the
-Hopper kernel for those statistics.
+"""GroupNorm(+SiLU) with fp32 one-pass statistics: the plain PyTorch
+version, the Hopper kernels' wrappers, the autograd Function and the
+dispatcher. Port of `diffusion_e2e_ft_tpu/kernels/groupnorm.py`.
 
-`group_norm_silu` mirrors `diffusion_e2e_ft_tpu/kernels/groupnorm.py::_xla_group_norm`,
-the path the JAX package runs by default: per-channel fp32 sums of x and x^2,
-folded C -> G, variance E[x^2] - E[x]^2 clamped at 0, normalize, affine and
-optional SiLU in fp32, result cast back to the input dtype. It stays plain on
-both devices, as the JAX package keeps its statistics kernel opt-in there.
-
-`channel_stats` launches `csrc/groupnorm.cu`, which replaces the TPU kernel
-`::_stats_kernel` (launched by `_channel_stats`): the per-channel sums alone,
-which feed the fused GroupNorm+SiLU -> conv kernel (`kernels/gn_conv.py`).
-`channel_stats_reference` is its plain version. The kernel splits a long
-row over a cluster of `stats_parts(B * C, N)` blocks and adds their sums in
-rank order; `STATS_SPLIT` mirrors its constants (a test parses the source).
+- `group_norm_reference` mirrors `_xla_group_norm`: per-channel fp32 sums of
+  x and x^2, folded C -> G, variance E[x^2] - E[x]^2 clamped at 0,
+  normalize, affine and optional SiLU in fp32, the result cast back to the
+  input dtype. It is the CPU path, and what the backward recomputes.
+- `channel_stats` launches `csrc/groupnorm.cu`'s statistics kernel, which
+  replaces the TPU kernel `::_stats_kernel` (launched by `_channel_stats`):
+  the per-channel sums alone. `channel_stats_reference` is its plain
+  version. The kernel splits a long row over a cluster of
+  `stats_parts(B * C, N)` blocks and adds their sums in rank order;
+  `STATS_SPLIT` mirrors its constants (a test parses the source). Its
+  callers: `group_norm_kernel` below and the fused GN -> conv
+  (`kernels/gn_conv.py`).
+- `group_norm_apply` launches `csrc/groupnorm.cu`'s apply kernel, which
+  replaces no Pallas kernel but the XLA normalize + affine + SiLU that
+  follows `_stats_kernel` in `_pallas_group_norm`: `fold_stats`' a, b, then
+  x * a + b and the optional SiLU in fp32. `group_norm_apply_reference` is
+  its plain version.
+- `group_norm_kernel` (statistics, then apply: two launches) mirrors
+  `_pallas_group_norm`, and `GroupNormFunction` mirrors `_fused`: the
+  forward runs the kernels and saves x and the affine; the backward
+  recomputes `group_norm_reference` and returns its vector-Jacobian product.
+- `group_norm_silu` dispatches, as the JAX function of that name: a CPU
+  tensor takes `group_norm_reference`; a CUDA tensor takes the kernels (alone
+  when no gradient is wanted, through `GroupNormFunction` when one is) or
+  raises. Their envelope: x fp32 or bf16, [B, C, H, W] or [B, C, N],
+  non-empty, C a multiple of `groups`; the affine fp32 or bf16, on x's
+  device. x is made contiguous first, as `gn_conv.gn_silu_conv3x3` does: an
+  NHWC image permuted to NCHW reaches the VAE encoder's first conv as a
+  channels_last tensor, and the convs and residual adds carry that layout
+  on through the encoder and into the UNet; the plain version
+  copies such an x too (its reshape), so both paths hand the next layer the
+  same contiguous layout. Unlike the JAX package there is no switch, no
+  fallback and no lane rule on C: eager PyTorch has no fusion that the
+  kernels could disturb, and the statistics kernel takes any C.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +48,7 @@ import torch.nn.functional as F
 from diffusion_e2e_ft_tpu_torch.kernels import _build
 
 # Kernel launches since the last `reset_launches()`.
-launches = {"gn_channel_stats": 0}
+launches = {"gn_channel_stats": 0, "gn_apply": 0}
 # `csrc/groupnorm.cu`: blocks a (b, c) row at most, values a block at least before a row is split further,
 # and resident blocks an SM
 STATS_SPLIT = {"kStatsMaxParts": 8, "kStatsMinSegment": 16384, "kStatsBlocksPerSm": 8}
@@ -73,7 +98,7 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def group_norm_silu(
+def group_norm_reference(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: torch.Tensor,
@@ -81,7 +106,7 @@ def group_norm_silu(
     eps: float,
     silu: bool = True,
 ) -> torch.Tensor:
-    """[B, C, H, W] (or [B, C, N]) GroupNorm with optional fused SiLU."""
+    """[B, C, H, W] (or [B, C, N]) GroupNorm with optional fused SiLU, in plain PyTorch."""
     b, c = x.shape[:2]
     gs = c // groups
     xf = x.float().reshape(b, c, -1)
@@ -99,3 +124,121 @@ def group_norm_silu(
     if silu:
         out = F.silu(out)
     return out.to(x.dtype).reshape(x.shape)
+
+
+def fold_stats(
+    stats: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, count: int
+) -> torch.Tensor:
+    """Per-channel sums [B, 2, C] over `count` values per channel -> fp32
+    [B, 2, C] (a, b) with GroupNorm(x) = x * a + b: the kernels' fold, as
+    `diffusion_e2e_ft_tpu/kernels/gn_conv.py:151-162`."""
+    b, _, c = stats.shape
+    gs = c // groups
+    n = float(count * gs)
+    mean_g = stats[:, 0].reshape(b, groups, gs).sum(-1) / n
+    var_g = (stats[:, 1].reshape(b, groups, gs).sum(-1) / n - mean_g * mean_g).clamp_min(0.0)
+    inv_g = torch.rsqrt(var_g + eps)
+    a = inv_g.repeat_interleave(gs, dim=-1) * weight.float()
+    return torch.stack([a, bias.float() - mean_g.repeat_interleave(gs, dim=-1) * a], dim=1)
+
+
+def group_norm_apply_reference(
+    x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
+    silu: bool = True,
+) -> torch.Tensor:
+    """x [B, C, H, W] (or [B, C, N]) and its per-channel sums [B, 2, C] ->
+    act(x * a + b) in x's dtype, with `fold_stats`' a, b and the arithmetic
+    in fp32."""
+    b, c = x.shape[:2]
+    xf = x.float().reshape(b, c, -1)
+    ab = fold_stats(stats, weight, bias, groups, eps, xf.shape[-1])
+    out = xf * ab[:, 0, :, None] + ab[:, 1, :, None]
+    if silu:
+        out = F.silu(out)
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def group_norm_apply(
+    x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
+    silu: bool = True,
+) -> torch.Tensor:
+    """`group_norm_apply_reference` with the CUDA kernel: x a contiguous fp32
+    or bf16 CUDA tensor, stats its contiguous fp32 [B, 2, C] sums, the affine
+    [C] in fp32 or bf16 (one dtype for both) on x's device. Raises on
+    anything else."""
+    check_kernel_operand("gn_apply", "x", x)
+    if x.ndim not in (3, 4) or x.numel() == 0:
+        raise ValueError(f"gn_apply: x must be a non-empty [B, C, H, W] or [B, C, N], got {tuple(x.shape)}")
+    b, c = x.shape[:2]
+    if groups <= 0 or c % groups:
+        raise ValueError(f"gn_apply: {c} channels do not split into {groups} groups")
+    if (stats.device != x.device or stats.dtype != torch.float32 or stats.shape != (b, 2, c)
+            or not stats.is_contiguous()):
+        raise ValueError(f"gn_apply: stats must be contiguous fp32 [{b}, 2, {c}] on {x.device}, got "
+                         f"{stats.dtype} {tuple(stats.shape)} on {stats.device}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        check_kernel_operand("gn_apply", name, t)
+        if t.device != x.device or t.shape != (c,):
+            raise ValueError(f"gn_apply: {name} {tuple(t.shape)} on {t.device}, expected [{c}] on {x.device}")
+    if weight.dtype != bias.dtype:
+        raise TypeError(f"gn_apply: weight {weight.dtype} and bias {bias.dtype} differ")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _build.launch(launches, "gn_apply", x, x.data_ptr(), stats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[weight.dtype], b, c,
+                  x[0, 0].numel(), groups, float(eps), int(silu))
+    return out
+
+
+def group_norm_kernel(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, silu: bool = True
+) -> torch.Tensor:
+    """`group_norm_reference` with the CUDA kernels: the statistics, then the apply."""
+    return group_norm_apply(x, channel_stats(x), weight, bias, groups, eps, silu)
+
+
+# the forwards the autograd Function runs; its backward is always the plain version's
+KERNELS: Callable[..., torch.Tensor] = group_norm_kernel
+PLAIN: Callable[..., torch.Tensor] = group_norm_reference
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """Differentiable GroupNorm(+SiLU) through `impl`'s forward; the backward
+    recomputes `group_norm_reference`, as the JAX `_fused_bwd`.
+
+    The custom_fwd / custom_bwd decorators run the backward's recompute under
+    the forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, weight, bias, groups: int, eps: float, silu: bool, impl: Callable[..., torch.Tensor]):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.groups, ctx.eps, ctx.silu = groups, eps, silu
+        return impl(x, weight, bias, groups, eps, silu)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = group_norm_reference(*leaves, ctx.groups, ctx.eps, ctx.silu)
+        grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n], grad_out))
+        return (*(next(grads) if n else None for n in need), None, None, None, None)
+
+
+def group_norm_silu(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    groups: int,
+    eps: float,
+    silu: bool = True,
+) -> torch.Tensor:
+    """[B, C, H, W] (or [B, C, N]) GroupNorm with optional fused SiLU: the
+    plain version on the CPU, the kernels on the card."""
+    if x.device.type != "cuda":
+        return group_norm_reference(x, weight, bias, groups, eps, silu)
+    x = x.contiguous()  # channels_last activations (see the module's note) are copied, as the plain version does
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return GroupNormFunction.apply(x, weight, bias, groups, eps, silu, KERNELS)
+    return group_norm_kernel(x, weight, bias, groups, eps, silu)

@@ -52,7 +52,11 @@ class TimestepEmbedding(nn.Module):
 
 
 class GroupNormAct(nn.Module):
-    """GroupNorm with optional fused SiLU; fp32 one-pass statistics."""
+    """GroupNorm with optional fused SiLU; fp32 one-pass statistics.
+
+    `kernels.groupnorm.group_norm_silu`: the plain version on the CPU; on the
+    card the statistics and apply kernels (two launches a call), through
+    `GroupNormFunction` when a gradient is wanted."""
 
     def __init__(self, groups: int, channels: int, eps: float = 1e-5, silu: bool = True):
         super().__init__()

@@ -18,8 +18,8 @@ does. After two warm-up steps it prints:
   medians of 5;
 - over 3 steps under torch.profiler: host wall time, summed kernel time, the
   idle share 1 - kernel time / wall, CUDA kernels launched a step, kernel
-  time grouped by kind (and the GroupNorm statistics apart from the fused
-  GN -> conv), and the peak device memory of those steps.
+  time grouped by kind (and the GroupNorm statistics and apply apart from
+  the fused GN -> conv), and the peak device memory of those steps.
 
 `--split-only` stops after the split (no profiler: a cheaper host-clock
 A/B). `E2EFT_GNCONV_IMPL=v2` in the environment runs the single-launch GN ->
@@ -130,7 +130,9 @@ def main() -> int:
     for e in kernels:
         by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + e.device_time / 1e3
     stats_ms = sum(e.device_time for e in kernels if "channel_stats_kernel" in e.name) / 1e3
-    print(f"{tag}   of which GN statistics {stats_ms / STEPS:.2f} ms per step", flush=True)
+    apply_ms = sum(e.device_time for e in kernels if "gn_apply" in e.name) / 1e3
+    print(f"{tag}   of which GN statistics {stats_ms / STEPS:.2f} ms, GN apply {apply_ms / STEPS:.2f} ms per step",
+          flush=True)
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"{tag}   {kind:28s} {ms / STEPS:8.2f} ms per step", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
