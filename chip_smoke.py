@@ -31,30 +31,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bias, bounded as the backward kernels; the statistics and v2 each twice
    for identical bits; and their times (events around one call and around
    calls back to back) beside the plain versions' and the bound;
-4c. the standalone GroupNorms' route: the statistics kernel then the apply
-   kernel (`groupnorm.group_norm_kernel`) against `group_norm_reference`, and
-   the apply alone against `group_norm_apply_reference`, at every shape that
-   the serving, ensemble, eval, parity and train paths below send a
-   standalone GroupNorm (derived from the modules at each path's batches:
-   `route_paths`, `route_shapes`; the in-process paths' launches are
-   recorded and must fall at these shapes), fp32 and bf16 (the affine fp32 or
-   bf16, the SiLU on or off, in turns), bounded as 4b, two calls bit-identical;
-   and at the Marigold 768x768 request's shapes the route's, the statistics',
-   the apply's, the plain version's, `F.group_norm` (+ `F.silu`)'s and, for
-   the apply, `torch.addcmul`'s times beside the bounds, and their sums over
-   one request;
+4c. the standalone GroupNorms: `groupnorm.group_norm_kernel` (one C call:
+   one launch of the one-launch kernel where a (b, g) slab fits a cluster's
+   shared memory, else the statistics kernel then the apply kernel; the
+   kernels launched checked against the rule) against
+   `group_norm_reference`, and the apply alone against
+   `group_norm_apply_reference`, at every shape that the serving, ensemble,
+   eval, parity and train paths below send a standalone GroupNorm (derived
+   from the modules at each path's batches: `route_paths`, `route_shapes`;
+   the in-process paths' launches are recorded and must fall at these
+   shapes) and at ragged ones (`GROUP_CASES`), fp32 and bf16 (the affine
+   fp32 or bf16, the SiLU on or off, the mean 0.5 or 3, in turns; x one value
+   off its output's alignment at every fourth shape), bounded as 4b, two
+   calls bit-identical; and at the Marigold 768x768 request's shapes the
+   port's GroupNorm's, the two-kernel route's, the statistics', the apply's,
+   the plain version's, `F.group_norm` (+ `F.silu`)'s and, for the apply,
+   `torch.addcmul`'s times beside the bounds, the host microseconds a call,
+   and their sums over one request;
 5. end-to-end parity, fp32 with TF32 off: a full-width SD2 Marigold pipeline
    with seeded random weights runs one 256x256 image, depth and normals, on
    the CPU (plain path) and on the GPU (kernel path: 12 attention kernel
-   launches each, and the GroupNorm route at each of the 113 standalone
-   GroupNorms of the encoder, the UNet and the decoder);
+   launches each, and the GroupNorm kernels at each of the 113 standalone
+   GroupNorms of the encoder, the UNet and the decoder: one launch at 112,
+   statistics + apply at the decoder's [1, 256, 256, 256]);
 6. serving, slice A's main path: the same weights written as an HF pipeline
    directory (bf16 `.bin` files), loaded with `MarigoldPipeline.from_hf_dir`
    on the GPU in bf16, and a `PipelineService` answering 768x768 depth,
    768x768 normals and 576x768 depth requests (17 attention kernel launches
-   each, and 113 statistics + 113 apply launches: every GroupNorm is
-   standalone, as serving keeps `fused_gn_conv=False`), with latency and
-   peak device memory;
+   each; every GroupNorm is standalone, as serving keeps
+   `fused_gn_conv=False`: a 768x768 request 93 one-launch GroupNorms and 20
+   of statistics + apply, a 576x768 one 101 and 12), with latency and peak
+   device memory;
 7. training parity, fp32 with TF32 off, with the default
    `fused_vae_kernels=True`: one E2E train step's loss and gradients
    (full-width SD2 UNet and VAE, seeded random weights, 256x256, depth and
@@ -220,8 +227,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    256x256 with the UNets one block a level, and the tiny Marigold single
    step and SD2 train steps of the CPU tests; each output within the port's
    CPU-vs-JAX bound plus the card-vs-CPU bound of phases 5 and 7
-   (`card_bounds`), every one of kernels 1-8 and the GroupNorm apply
-   launched (counts printed); then
+   (`card_bounds`), every one of kernels 1-8, the GroupNorm apply and the
+   one-launch GroupNorm launched (counts printed); then
    the card goldens' Marigold and GeoWizard in bf16, max |delta| against the
    fp32 goldens printed, unbounded.
 
@@ -394,14 +401,14 @@ GEO_MH_SITES = 5  # the d=40 sites of a 768x768 request, under E2EFT_FA_HP=2
 
 
 @functools.lru_cache(maxsize=None)
-def norm_visits(part: str, b: int, hw: tuple, fused: bool = False, config=None) -> tuple:
-    """The (B, C, H, W) input of each standalone GroupNorm, in order, that one
-    forward of `part` ("unet", "encoder" or "decoder") visits at batch b and
-    an hw image: the GroupNormAct modules of the module tree record their
-    input, on the meta device (no memory, no kernel). `fused`: the fused
-    VAE, whose ResnetBlocks run their two GroupNorms inside the GN -> conv
-    pairs, outside this route. `config`: a UNetConfig or VAEConfig (default
-    SD2's / the SD VAE's)."""
+def norm_records(part: str, b: int, hw: tuple, fused: bool = False, config=None) -> tuple:
+    """(the (B, C, H, W) input, the groups) of each standalone GroupNorm, in
+    order, that one forward of `part` ("unet", "encoder" or "decoder") visits
+    at batch b and an hw image: the GroupNormAct modules of the module tree
+    record their input, on the meta device (no memory, no kernel). `fused`:
+    the fused VAE, whose ResnetBlocks run their two GroupNorms inside the
+    GN -> conv pairs, outside this route. `config`: a UNetConfig or VAEConfig
+    (default SD2's / the SD VAE's)."""
     from diffusion_e2e_ft_tpu_torch.models import AutoencoderKL, UNet2DCondition, UNetConfig, VAEConfig
     from diffusion_e2e_ft_tpu_torch.models.layers import GroupNormAct, ResnetBlock
 
@@ -424,7 +431,7 @@ def norm_visits(part: str, b: int, hw: tuple, fused: bool = False, config=None) 
 
     def visit(module, x):  # a GroupNorm keeps its input's shape: record it and skip the math on meta tensors
         if id(module) not in paired:
-            seen.append(tuple(x.shape))
+            seen.append((tuple(x.shape), module.groups))
         return x
 
     forward, GroupNormAct.forward = GroupNormAct.forward, visit
@@ -436,8 +443,13 @@ def norm_visits(part: str, b: int, hw: tuple, fused: bool = False, config=None) 
     return tuple(seen)
 
 
+def norm_visits(part: str, b: int, hw: tuple, fused: bool = False, config=None) -> tuple:
+    """The (B, C, H, W) input of each standalone GroupNorm of `norm_records`, in order."""
+    return tuple(shape for shape, _ in norm_records(part, b, hw, fused, config))
+
+
 def norm_count(part: str, fused: bool = False, config=None) -> int:
-    """Standalone GroupNorms (2 launches each on the card) of one forward of `part`."""
+    """Standalone GroupNorms of one forward of `part`."""
     return len(norm_visits(part, 2, (256, 256), fused, config))  # batch 2: a joint-attention pair
 
 
@@ -449,16 +461,40 @@ def request_norms(chunks: int, steps: int, unet_config=None, vae_config=None) ->
                      + norm_count("decoder", config=vae_config))
 
 
-def geo_request_norms(chunks: int = 1, steps: int = 1) -> int:
-    """`request_norms` of GeoWizard's UNet (SD1.5 widths, the class embedding, joint attention)."""
+GN_ROUTE_KERNELS = ("gn_group", "gn_channel_stats", "gn_apply")
+
+
+def gn_launches(part: str, hw: tuple, dtype, fused: bool = False, config=None) -> dict:
+    """The GroupNorm kernels' launches of one forward of `part` at an hw image
+    in `dtype`, at any batch (a slab is one image's group): `gn_group` at each
+    standalone GroupNorm whose slab fits (`groupnorm.group_fits`), the
+    statistics and the apply at each other one."""
+    from diffusion_e2e_ft_tpu_torch.kernels.groupnorm import group_fits
+
+    records = norm_records(part, 2, tuple(hw), fused, config)  # batch 2: a joint-attention pair
+    one = sum(group_fits(shape, dtype, groups) for shape, groups in records)
+    return {"gn_group": one, "gn_channel_stats": len(records) - one, "gn_apply": len(records) - one}
+
+
+def gn_sum(*terms) -> dict:
+    """The GroupNorm kernels' launches of (count, launches) terms, added kernel by kernel."""
+    return {name: sum(k * launches[name] for k, launches in terms) for name in GN_ROUTE_KERNELS}
+
+
+def request_gn(hw: tuple, dtype, chunks: int = 1, steps: int = 1, unet_config=None, vae_config=None) -> dict:
+    """The GroupNorm kernels' launches of one serving request (Marigold or
+    GeoWizard) at an hw image in `dtype`: each chunk of members encodes once,
+    runs the UNet `steps` times and decodes once, with the unfused VAE."""
+    return gn_sum((chunks * steps, gn_launches("unet", hw, dtype, config=unet_config)),
+                  (chunks, gn_launches("encoder", hw, dtype, config=vae_config)),
+                  (chunks, gn_launches("decoder", hw, dtype, config=vae_config)))
+
+
+def geo_request_gn(hw: tuple, dtype, chunks: int = 1, steps: int = 1) -> dict:
+    """`request_gn` of GeoWizard's UNet (SD1.5 widths, the class embedding, joint attention)."""
     from diffusion_e2e_ft_tpu_torch.models import UNetConfig
 
-    return request_norms(chunks, steps, UNetConfig.geowizard())
-
-
-def gn_route(n: int) -> dict:
-    """The GroupNorm kernels' launches of n standalone GroupNorms: statistics, then apply."""
-    return {"gn_channel_stats": n, "gn_apply": n}
+    return request_gn(hw, dtype, chunks, steps, UNetConfig.geowizard())
 
 
 # Kernel launches of one train step with UNet checkpointing: the frozen
@@ -467,25 +503,29 @@ def gn_route(n: int) -> dict:
 # decoder's mid attention runs forward+LSE and the backward once. With the
 # fused VAE (`gn`: "v1" or "v2", None for unfused) every GN -> conv pair of
 # the encoder and the decoder launches once; the backward recomputes the
-# plain composite. Every standalone GroupNorm launches the GroupNorm route
-# once a forward (statistics + apply; its backward recomputes the plain
-# version): the UNet's twice (the checkpoint's recompute), the encoder's and
-# the decoder's once; `decode_checkpoint` runs the decode twice.
-# GeoWizard's E2E step launches the same (its decode is one call at 2B); its
-# diffusion-loss step (`e2e=False`) decodes nothing and encodes twice (the
-# image, then the GT geometry at 2B). `unet_config`: the UNet's config,
-# when it is not SD2's.
+# plain composite. Every standalone GroupNorm launches the GroupNorm kernels
+# once a forward (`gn_launches`: one launch or statistics + apply, by its
+# slab in the compute dtype; its backward recomputes the plain version): the
+# UNet's twice (the checkpoint's recompute), the encoder's and the decoder's
+# once; `decode_checkpoint` runs the decode twice. GeoWizard's E2E step
+# launches the same (its decode is one call at 2B); its diffusion-loss step
+# (`e2e=False`) decodes nothing and encodes twice (the image, then the GT
+# geometry at 2B). `unet_config`: the UNet's config, when it is not SD2's;
+# `hw` and `dtype`: the batch's images and the compute dtype.
 def step_launches(unet_sites: int, gn: Optional[str] = "v1", e2e: bool = True, unet_config=None,
-                  decode_checkpoint: bool = False) -> dict:
+                  decode_checkpoint: bool = False, hw: tuple = (480, 640), dtype=torch.bfloat16) -> dict:
     decodes = e2e * (1 + decode_checkpoint)
     pairs = decodes * sum(DECODER_PAIRS.values()) + (1 if e2e else 2) * sum(ENCODER_PAIRS.values())
     fused = gn is not None
-    route = (2 * norm_count("unet", config=unet_config) + (1 if e2e else 2) * norm_count("encoder", fused)
-             + decodes * norm_count("decoder", fused))
+    route = gn_sum((2, gn_launches("unet", hw, dtype, config=unet_config)),
+                   (1 if e2e else 2, gn_launches("encoder", hw, dtype, fused)),
+                   (decodes, gn_launches("decoder", hw, dtype, fused)))
     return {"flash_attention_fwd": 1 if e2e else 2, "flash_attention_fwd_mh": 0,
             "flash_attention_fwd_lse": 2 * unet_sites + decodes, "flash_attention_bwd_dq": unet_sites + e2e,
-            "flash_attention_bwd_dkv": unet_sites + e2e, "gn_channel_stats": pairs * (gn == "v1") + route,
-            "gn_apply": route, "gn_silu_conv3x3": pairs * (gn == "v1"), "gn_silu_conv3x3_v2": pairs * (gn == "v2")}
+            "flash_attention_bwd_dkv": unet_sites + e2e,
+            "gn_channel_stats": pairs * (gn == "v1") + route["gn_channel_stats"], "gn_apply": route["gn_apply"],
+            "gn_group": route["gn_group"], "gn_silu_conv3x3": pairs * (gn == "v1"),
+            "gn_silu_conv3x3_v2": pairs * (gn == "v2")}
 
 
 UNET_SITES_256 = 10  # UNet self-attention sites in the kernels' envelope at 256x256 (1024 and 256 tokens)
@@ -1051,11 +1091,12 @@ def gn_times(gc, gn, x, gw, gb, weight, bias, silu) -> dict:
     return row
 
 
-# Phase 4c: the standalone GroupNorms' route (statistics + apply) at every shape that the paths driven below
-# send it, at the published widths: serving, the ensembles and the eval frames with the unfused VAE, and the
-# train steps with the fused VAE (whose GN -> conv pairs take kernels 7-8; the fused visits are a subset of the
-# unfused ones at the same batch). (label, UNet config or None for SD2's, image hw, UNet batches, encoder
-# batches, decoder batches, fused); an ensemble's batch is `find_batch_size`'s, as its request takes it.
+# Phase 4c: the standalone GroupNorms' kernels (one launch, or statistics + apply) at every shape that the
+# paths driven below send them, at the published widths: serving, the ensembles and the eval frames with the
+# unfused VAE, and the train steps with the fused VAE (whose GN -> conv pairs take kernels 7-8; the fused visits
+# are a subset of the unfused ones at the same batch). (label, UNet config or None for SD2's, image hw, UNet
+# batches, encoder batches, decoder batches, fused); an ensemble's batch is `find_batch_size`'s, as its request
+# takes it.
 def route_paths() -> list:
     from diffusion_e2e_ft_tpu_torch.pipelines import MarigoldPipeline
 
@@ -1109,18 +1150,27 @@ def route_shapes() -> frozenset:
     return frozenset(shape for path in route_paths() for shape in route_visits(path))
 
 
+# ... and shapes no path sends, for the one-launch kernel's edges: ragged n (1961 values a channel), channels of
+# 63 values (vectors cross channels), n = 1 (80 channels a group, a vector spans several), a slab that takes 8
+# blocks in bf16 (1.18 MB) and the route in fp32
+GROUP_CASES = [(1, 320, 37, 53), (3, 96, 7, 9), (2, 2560, 1, 1), (1, 128, 383, 385)]
+
+
 def phase_gn_route() -> dict:
-    """Phase 4c: `group_norm_kernel` (the statistics kernel, then the apply
-    kernel) against `group_norm_reference` in fp32 on the same values, and
-    the apply kernel alone against `group_norm_apply_reference` on the
-    kernel's sums, at every shape of `route_shapes()`, fp32 and bf16 x (the
-    affine fp32, or bf16 as a bf16 module holds it, in turns), with and
-    without the SiLU in turns, a non-zero bias; two calls for identical bits.
-    Then, at the Marigold 768x768 request's shapes in bf16 (bf16 affine, as
-    serving holds it), CUDA events: the route, the statistics and the apply
-    alone (calls back to back), the plain version and the library's
-    `F.group_norm` (+ `F.silu`), beside their bounds, and their sums over one
-    request's visits."""
+    """Phase 4c: `group_norm_kernel` (one C call: one launch of the
+    one-launch kernel where `groupnorm.group_fits` takes the shape, else the
+    statistics kernel then the apply kernel; the kernels launched are checked
+    against that rule) against `group_norm_reference` in fp32 on the same
+    values, and the apply kernel alone against `group_norm_apply_reference`
+    on the statistics kernel's sums, at every shape of `route_shapes()` and
+    `GROUP_CASES`, fp32 and bf16 x (the affine fp32, or bf16 as a bf16 module
+    holds it, in turns), with and without the SiLU in turns, a non-zero bias,
+    a mean of 3 at every other shape (0.5 otherwise), and at every fourth
+    shape off the timed request an x one value past an aligned base (its
+    output's base aligned otherwise, its slabs' heads ragged); two calls for
+    identical bits. Then, at the Marigold 768x768 request's shapes in bf16
+    (bf16 affine, as serving holds it): `route_times`, and their sums over
+    one request's visits."""
     from diffusion_e2e_ft_tpu_torch.kernels import groupnorm as gn
 
     t0 = time.perf_counter()
@@ -1130,39 +1180,51 @@ def phase_gn_route() -> dict:
         return torch.randn(shape, device="cuda", generator=gen) * scale + shift
 
     eps = 1e-6
-    worst = {"gn_channel_stats": 0.0, "gn_apply": 0.0}
-    shapes = sorted(route_shapes())
+    worst = {"gn_group": 0.0, "gn_channel_stats": 0.0, "gn_apply": 0.0}
+    shapes = sorted(route_shapes()) + GROUP_CASES
     paths = route_paths()
-    timed = route_visits(next(p for p in paths if p[0] == ROUTE_TIMED))
+    timed_path = next(p for p in paths if p[0] == ROUTE_TIMED)
+    timed = route_visits(timed_path)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         bound = GN_BOUND[dtype]
-        top = {"route": 0.0, "apply": 0.0}
+        top = {"gn_group": 0.0, "route": 0.0, "apply": 0.0}
+        ones = 0
         for i, shape in enumerate(shapes):
             c = shape[1]
             silu = i % 3 != 2
             affine = torch.bfloat16 if dtype == torch.bfloat16 and (i % 2 == 0 or shape in timed) else torch.float32
-            x = randn(*shape, shift=0.5).to(dtype)
+            x = randn(math.prod(shape) + 1, shift=3.0 if i % 2 else 0.5).to(dtype)
+            x = (x[1:] if i % 4 == 3 and shape not in timed else x[:-1]).view(shape)
             w, b = randn(c, scale=0.2, shift=1.0).to(affine), randn(c, scale=0.5).to(affine)
-            stats = gn.channel_stats(x)
+            one = gn.group_fits(shape, dtype, 32)
+            ones += one
+            gn.reset_launches()
             out, again = gn.group_norm_kernel(x, w, b, 32, eps, silu), gn.group_norm_kernel(x, w, b, 32, eps, silu)
+            launched = dict(gn.launches)
+            stats = gn.channel_stats(x)
             applied = gn.group_norm_apply(x, stats, w, b, 32, eps, silu)
             torch.cuda.synchronize()
+            want = dict.fromkeys(launched, 0) | ({"gn_group": 2} if one else {"gn_channel_stats": 2, "gn_apply": 2})
+            check(launched == want, f"group_norm_kernel at {shape} {dtype} launched {launched}, the rule {want}")
             check(out.dtype == dtype and out.shape == x.shape and bool(torch.isfinite(out).all()),
-                  f"group norm route {out.dtype} {tuple(out.shape)} at {shape} {dtype}")
-            check(torch.equal(out, again) and torch.equal(out, applied),
-                  f"group norm route: two calls differ at {shape} {dtype}")
+                  f"group_norm_kernel {out.dtype} {tuple(out.shape)} at {shape} {dtype}")
+            check(torch.equal(out, again), f"group_norm_kernel: two calls differ at {shape} {dtype}")
+            check(one or torch.equal(out, applied), f"the route differs from statistics + apply at {shape} {dtype}")
             # one fp32 reference at a time: the largest shape, [10, 256, 576, 768], holds 4.5 GB in fp32
-            rel = rel_err(out, gn.group_norm_reference(x.float(), w.float(), b.float(), 32, eps, silu))[1]
+            err, rel = rel_err(out, gn.group_norm_reference(x.float(), w.float(), b.float(), 32, eps, silu))
             aerr, arel = rel_err(applied, gn.group_norm_apply_reference(x.float(), stats, w.float(), b.float(), 32,
                                                                          eps, silu))
             serr = rel_err(stats, gn.channel_stats_reference(x))
             check(rel <= bound and arel <= bound and serr[1] <= bound,
-                  f"group norm route at {shape} {dtype} (affine {affine}, silu {silu}): max|d|/max|plain| route "
-                  f"{rel}, apply {arel}, statistics {serr[1]} > {bound}")
+                  f"group norm at {shape} {dtype} (affine {affine}, silu {silu}, {'one launch' if one else 'route'}): "
+                  f"max|d|/max|plain| {rel}, apply alone {arel}, statistics {serr[1]} > {bound}")
             worst["gn_apply"] = max(worst["gn_apply"], aerr)
             worst["gn_channel_stats"] = max(worst["gn_channel_stats"], serr[0])
-            top["route"], top["apply"] = max(top["route"], rel), max(top["apply"], arel)
+            if one:
+                worst["gn_group"] = max(worst["gn_group"], err)
+            top["gn_group" if one else "route"] = max(top["gn_group" if one else "route"], rel)
+            top["apply"] = max(top["apply"], arel)
             if dtype == torch.bfloat16 and shape in timed:
                 rows[shape] = route_times(gn, x, stats, w, b, eps, silu=True, count=shape == max(timed, key=math.prod))
             del x, stats, out, again, applied
@@ -1171,69 +1233,111 @@ def phase_gn_route() -> dict:
         w, b = randn(128, scale=0.2, shift=1.0), randn(128, scale=0.5)
         err = rel_err(gn.group_norm_silu(x, w, b, 32, eps), gn.group_norm_reference(x.float(), w, b, 32, eps))[1]
         check(err <= bound, f"group_norm_silu on a channels_last x: max|d|/max|plain| {err} > {bound}")
-        print(f"[gn-route] {str(dtype):14s} at {len(shapes)} shapes of {len(paths)} paths: max|d|/max|plain| "
-              f"route {top['route']:.2e}, apply alone {top['apply']:.2e}, the dispatcher on a channels_last x "
-              f"{err:.2e} (bound {bound}); two calls bit-identical",
-              flush=True)
+        print(f"[gn-route] {str(dtype):14s} at {len(shapes)} shapes ({len(route_shapes())} of {len(paths)} paths): "
+              f"one launch at {ones}, the route at {len(shapes) - ones}; max|d|/max|plain| one launch "
+              f"{top['gn_group']:.2e}, route {top['route']:.2e}, apply alone {top['apply']:.2e}, the dispatcher on a "
+              f"channels_last x {err:.2e} (bound {bound}); two calls bit-identical", flush=True)
     torch.cuda.empty_cache()
-    names = ("route", "stats", "apply", "plain", "library", "library_apply")
-    first = rows[max(rows, key=math.prod)]
-    per_request = {k: sum(n * rows[s][k] for s, n in timed.items()) for k in (*names, "bound_ms", "apply_bound_ms")}
+    names = ("kernel", "route", "stats", "apply", "plain", "library", "library_apply", "host_us", "route_host_us",
+             "bound_ms", "route_bound_ms", "apply_bound_ms")
+    per_request = {k: sum(n * rows[s][k] for s, n in timed.items()) for k in names}
+    launches = request_gn(timed_path[2], torch.bfloat16)
     for shape in sorted(rows, key=lambda s: -math.prod(s)):
         r = rows[shape]
-        print(f"[gn-route] bf16 {list(shape)} x{timed[shape]} a request: route {r['route']:.4f} ms (events "
-              f"{r['route_events']:.4f}) = stats {r['stats']:.4f} + apply {r['apply']:.4f} (bound "
-              f"{r['apply_bound_ms']:.4f}, {r['apply_bound_ms'] / r['apply']:.2f} of it); plain {r['plain']:.4f}, "
-              f"F.group_norm + F.silu {r['library']:.4f}, route bound {r['bound_ms']:.4f}; the apply's library "
-              f"call, torch.addcmul on the folded a, b (no SiLU), {r['library_apply']:.4f}", flush=True)
+        how = "one launch" if r["one_launch"] else "the route"
+        print(f"[gn-route] bf16 {list(shape)} x{timed[shape]} a request, {how}: group_norm_kernel {r['kernel']:.4f} "
+              f"ms (events {r['kernel_events']:.4f}; host {r['host_us']:.1f} us a call) against its bound "
+              f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['kernel']:.2f} of it); the route "
+              f"{r['route']:.4f} (host {r['route_host_us']:.1f} us) = stats {r['stats']:.4f} + apply {r['apply']:.4f} "
+              f"(bound {r['apply_bound_ms']:.4f}, {r['apply_bound_ms'] / r['apply']:.2f} of it), route bound "
+              f"{r['route_bound_ms']:.4f}; plain {r['plain']:.4f}, F.group_norm + F.silu {r['library']:.4f}; the "
+              f"apply's library call, torch.addcmul on the folded a, b (no SiLU), {r['library_apply']:.4f}",
+              flush=True)
+    first = rows[max(rows, key=math.prod)]
+    group = rows[max((s for s in rows if rows[s]["one_launch"]), key=math.prod)]
     print(f"[gn-route] per {ROUTE_TIMED} request ({sum(timed.values())} GroupNorms, bf16, back-to-back events): "
-          + ", ".join(f"{k} {per_request[k]:.3f} ms" for k in names)
-          + f"; bound {per_request['bound_ms']:.3f} (apply {per_request['apply_bound_ms']:.3f}); launches a call: "
-          f"route {first['route_launches']}, plain {first['plain_launches']}; phase 4c in "
-          f"{time.perf_counter() - t0:.1f} s",
-          flush=True)
-    return {"gn_apply": {"max_abs_err": worst["gn_apply"], "shape": first["shape"], "ms": first["apply"],
+          + ", ".join(f"{k} {per_request[k]:.3f} ms" for k in names if not k.endswith("_us"))
+          + f"; host {per_request['host_us'] / 1e3:.3f} ms (the route's {per_request['route_host_us'] / 1e3:.3f}); "
+          f"launches a request {json.dumps(launches)} ({sum(launches.values())}); launches a call at "
+          f"{first['shape']}: group_norm_kernel {first['kernel_launches']}, plain {first['plain_launches']}; "
+          f"phase 4c in {time.perf_counter() - t0:.1f} s", flush=True)
+    request = {f"{k}_ms" if not k.endswith(("_us", "_ms")) else k: per_request[k] for k in names}
+    return {"gn_group": {"max_abs_err": worst["gn_group"], "shape": group["shape"], "ms": group["kernel"],
+                         "plain_ms": group["plain"], "library_ms": group["library"],
+                         "library": "F.group_norm + F.silu", "bound_ms": group["bound_ms"],
+                         "bound_by": group["bound_by"], "host_us": group["host_us"],
+                         "shapes": [{k: rows[s][k] for k in ("shape", "kernel", "bound_ms", "host_us", "route",
+                                                             "route_host_us")}
+                                    for s in sorted(rows, key=math.prod) if rows[s]["one_launch"]],
+                         "per_request": request, "launches_per_request": launches},
+            "gn_apply": {"max_abs_err": worst["gn_apply"], "shape": first["shape"], "ms": first["apply"],
                          "plain_ms": first["apply_plain"], "library_ms": first["library_apply"],
                          "library": "torch.addcmul(b, x, a) on the folded a, b: the affine alone, without the SiLU",
                          "bound_ms": first["apply_bound_ms"], "bound_by": first["apply_bound_by"],
                          "route_ms": first["route"], "route_plain_ms": first["plain"],
                          "route_library_ms": first["library"], "route_library": "F.group_norm + F.silu",
-                         "route_bound_ms": first["bound_ms"],
-                         "per_request": {f"{k}_ms": per_request[k] for k in names}
-                         | {"bound_ms": per_request["bound_ms"], "apply_bound_ms": per_request["apply_bound_ms"]}},
+                         "route_bound_ms": first["route_bound_ms"]},
             "gn_channel_stats_route_err": worst["gn_channel_stats"]}
 
 
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds a call: `reps` calls back to back on the host clock,
+    after a warm-up call and a synchronise, before the closing synchronise
+    (the card's queue takes them without holding the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def route_times(gn, x, stats, w, b, eps, silu: bool, count: bool) -> dict:
-    """bf16 times at one route shape (calls back to back, `batch_ms`; the
-    route also as events around one call): the route, the statistics, the
-    apply, their plain versions, `F.group_norm` + `F.silu` (the route's
-    library call) and `torch.addcmul` on the folded a, b (the apply's, without
-    the SiLU); with the bounds: the apply reads
-    x and writes y (2 |x| bytes; 2 fp32 operations a value, 4 more for the
-    SiLU), the route also reads x for the statistics (3 |x|). `count`: also
-    the kernels a call of the route and of the plain version launch."""
+    """bf16 times at one GroupNorm shape (calls back to back, `batch_ms`; the
+    port's GroupNorm also as events around one call): `group_norm_kernel`
+    (the port's GroupNorm: one launch where the rule takes the shape, else the
+    route), the two-kernel route (`group_norm_apply` on `channel_stats`,
+    whatever the rule), the statistics, the apply, their plain versions,
+    `F.group_norm` + `F.silu` (the GroupNorm's library call) and
+    `torch.addcmul` on the folded a, b (the apply's, without the SiLU); the
+    host microseconds a call of the port's GroupNorm and of the route
+    (`host_us`). The bounds: the one-launch kernel reads x and writes y
+    (2 |x| bytes, and the affine; 3 fp32 operations a value for the sums, 2
+    for the affine, 4 more for the SiLU), the apply too (2 |x|, the affine and
+    the sums; no sums' operations), the route also reads x for the statistics
+    (3 |x|); `bound_ms` is the one-launch kernel's where the rule takes the
+    shape, else the route's. `count`: also the kernels a call of
+    `group_norm_kernel` and of the plain version launch."""
     itemsize, n = x.element_size(), x.numel()
-    affine = 2 * x.shape[1] * w.element_size() + x.shape[0] * 2 * x.shape[1] * 4
-    apply_bound = roofline((2 + 4 * silu) * n, 2 * n * itemsize + affine, PEAK_FP32_FLOPS)
-    route_bound = roofline((5 + 4 * silu) * n, 3 * n * itemsize + affine, PEAK_FP32_FLOPS)
+    affine = 2 * x.shape[1] * w.element_size()
+    sums = x.shape[0] * 2 * x.shape[1] * 4
+    one = gn.group_fits(x.shape, x.dtype, 32)
+    group_bound = roofline((5 + 4 * silu) * n, 2 * n * itemsize + affine, PEAK_FP32_FLOPS)
+    apply_bound = roofline((2 + 4 * silu) * n, 2 * n * itemsize + affine + sums, PEAK_FP32_FLOPS)
+    route_bound = roofline((5 + 4 * silu) * n, 3 * n * itemsize + affine + sums, PEAK_FP32_FLOPS)
     # the library's one-call apply: x * a + b with the same folded a, b (in x's dtype), without the SiLU
-    fold = gn.fold_stats(stats, w, b, 32, eps, x[0, 0].numel()).to(x.dtype)
+    fold = gn.fold_stats(stats, w, b, 32, eps, n // (x.shape[0] * x.shape[1])).to(x.dtype)
     a_lib, b_lib = (fold[:, k].reshape(*x.shape[:2], *[1] * (x.ndim - 2)) for k in (0, 1))
-    fns = {"route": lambda: gn.group_norm_kernel(x, w, b, 32, eps, silu), "stats": lambda: gn.channel_stats(x),
-           "apply": lambda: gn.group_norm_apply(x, stats, w, b, 32, eps, silu),
+    fns = {"kernel": lambda: gn.group_norm_kernel(x, w, b, 32, eps, silu),
+           "route": lambda: gn.group_norm_apply(x, gn.channel_stats(x), w, b, 32, eps, silu),
+           "stats": lambda: gn.channel_stats(x), "apply": lambda: gn.group_norm_apply(x, stats, w, b, 32, eps, silu),
            "plain": lambda: gn.group_norm_reference(x, w, b, 32, eps, silu),
            "apply_plain": lambda: gn.group_norm_apply_reference(x, stats, w, b, 32, eps, silu),
            "library": lambda: F.silu(F.group_norm(x, 32, w, b, eps)),
            "library_apply": lambda: torch.addcmul(b_lib, x, a_lib)}
     out = {k: batch_ms(f) for k, f in fns.items()}
-    out["route_events"] = time_ms(fns["route"])
-    out.update(shape=list(x.shape), bound_ms=route_bound["bound_ms"], apply_bound_ms=apply_bound["bound_ms"],
-               apply_bound_by=apply_bound["bound_by"])
-    if count:  # the route's from its own counts (exact); the plain version's CUDA kernels from torch.profiler
+    out["kernel_events"] = time_ms(fns["kernel"])
+    out["host_us"], out["route_host_us"] = host_us(fns["kernel"]), host_us(fns["route"])
+    kernel_bound = group_bound if one else route_bound
+    out.update(shape=list(x.shape), one_launch=one, bound_ms=kernel_bound["bound_ms"],
+               bound_by=kernel_bound["bound_by"], route_bound_ms=route_bound["bound_ms"],
+               apply_bound_ms=apply_bound["bound_ms"], apply_bound_by=apply_bound["bound_by"])
+    if count:  # the port's from its own counts (exact); the plain version's CUDA kernels from torch.profiler
         gn.reset_launches()
-        fns["route"]()
-        out["route_launches"], out["plain_launches"] = sum(gn.launches.values()), len(device_kernels(fns["plain"]))
+        fns["kernel"]()
+        out["kernel_launches"], out["plain_launches"] = sum(gn.launches.values()), len(device_kernels(fns["plain"]))
     return out
 
 
@@ -1262,7 +1366,7 @@ def phase_e2e_parity(fa):
         print(f"[e2e] fp32 256x256 {task}, gpu vs cpu: max|d|={err:.3e} (bound {bound}), "
               f"kernel launches {launches}, values in (0, 1): {inside:.3f}", flush=True)
         want_launches = {**dict.fromkeys(launches, 0), "flash_attention_fwd": SITES_256,
-                         **gn_route(request_norms(1, 1))}
+                         **request_gn((256, 256), torch.float32)}
         check(launches == want_launches, f"256x256 launches {launches}, expected {want_launches}")
         check(bool(torch.isfinite(got).all()), f"gpu {task} not finite")
         check(err <= bound, f"fp32 pipeline {task} gpu vs cpu max|d| {err} > {bound}")
@@ -1337,7 +1441,7 @@ def phase_serving(fa, fp32_pipe, ckpt: str) -> dict:
     images = {hw: rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _, hw in requests}
     latencies: dict = {}
 
-    per_request = {"flash_attention_fwd": SITES_768, **gn_route(request_norms(1, 1))}
+    per_request = {hw: {"flash_attention_fwd": SITES_768, **request_gn(hw, torch.bfloat16)} for _, hw in requests}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # the main path's run starts here
     for task, hw in requests:
@@ -1349,8 +1453,8 @@ def phase_serving(fa, fp32_pipe, ckpt: str) -> dict:
         latencies.setdefault((task, hw), []).append((time.perf_counter() - t0) * 1e3)
         after = read_launches()
         done = {k: after[k] - before[k] for k in after}
-        check(done == {**dict.fromkeys(done, 0), **per_request},
-              f"{task} {hw}: launches {done}, expected {per_request}")
+        check(done == {**dict.fromkeys(done, 0), **per_request[hw]},
+              f"{task} {hw}: launches {done}, expected {per_request[hw]}")
         check(pred.shape == (hw + (3,) if task == "normals" else hw), f"{task} {hw}: shape {pred.shape}")
         check(bool(np.isfinite(pred).all()), f"{task} {hw}: non-finite output")
         if task == "depth":
@@ -1365,9 +1469,10 @@ def phase_serving(fa, fp32_pipe, ckpt: str) -> dict:
               f"(median {statistics.median(ms):.2f})", flush=True)
     print(f"[serve] peak device memory {peak:.3f} GiB; kernel launches {launches} "
           f"over {len(requests)} requests", flush=True)
-    # serving needs no gradient: the plain forward kernel and the GroupNorm route only, and no GN -> conv kernel
+    # serving needs no gradient: the plain forward kernel and the GroupNorm kernels only, and no GN -> conv kernel
     # (fused_gn_conv=False)
-    check(launches == {**dict.fromkeys(launches, 0), **{k: n * len(requests) for k, n in per_request.items()}},
+    check(launches == {**dict.fromkeys(launches, 0), **{k: sum(per_request[hw][k] for _, hw in requests)
+                                                          for k in per_request[requests[0][1]]}},
           f"serving launched {launches}")
     return launches
 
@@ -1435,7 +1540,8 @@ def phase_train_parity(fa, cpu_unet, cpu_vae, empty):
         for n, e in leaf_rel.items():
             check(e <= TRAIN_PARITY_BOUNDS["leaf"], f"{modality}: {n} rel max|d| {e}")
         check(len(sites) == UNET_SITES_256, f"UNet kernel sites at 256x256: {sites}")
-        check(launches == step_launches(UNET_SITES_256), f"{modality}: launches {launches}")
+        check(launches == step_launches(UNET_SITES_256, hw=(256, 256), dtype=torch.float32),
+              f"{modality}: launches {launches}")
         for site in sites:  # the repair: every kernel site's projections get a gradient
             for proj in ("to_q", "to_k", "to_v"):
                 g = grads_g[f"{site}.{proj}.weight"]
@@ -1662,9 +1768,9 @@ def phase_geowizard_parity(fa):
             check(bool(torch.isfinite(got[task]).all()), f"gpu GeoWizard {task} not finite")
             check(err <= E2E_BOUNDS[task], f"fp32 GeoWizard {size} {task} gpu vs cpu max|d| {err} > {E2E_BOUNDS[task]}")
         print(f"[geo-e2e] {size}x{size} kernel launches {launches}", flush=True)
-        check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": sites, **gn_route(geo_request_norms())},
-              f"GeoWizard {size}x{size} launched {launches}, expected {sites} forward and "
-              f"{geo_request_norms()} GroupNorm routes")
+        want = {**dict.fromkeys(launches, 0), "flash_attention_fwd": sites,
+                **geo_request_gn((size, size), torch.float32)}
+        check(launches == want, f"GeoWizard {size}x{size} launched {launches}, expected {want}")
     return gpu
 
 
@@ -1716,7 +1822,8 @@ def phase_geowizard_serving(fa, fp32_pipe) -> tuple:
         latencies.setdefault((hw, domain), []).append((time.perf_counter() - t0) * 1e3)
         after = read_launches()
         done = {k: after[k] - before[k] for k in after}
-        check(done == {**dict.fromkeys(done, 0), "flash_attention_fwd": GEO_SITES[hw], **gn_route(geo_request_norms())},
+        check(done == {**dict.fromkeys(done, 0), "flash_attention_fwd": GEO_SITES[hw],
+                       **geo_request_gn(hw, torch.bfloat16)},
               f"GeoWizard {hw} {domain}: launches {done}, expected {GEO_SITES[hw]} forward")
         check(out.depth_np.shape == hw and out.normal_np.shape == hw + (3,), f"{hw}: shapes "
               f"{out.depth_np.shape} {out.normal_np.shape}")
@@ -1736,7 +1843,7 @@ def phase_geowizard_serving(fa, fp32_pipe) -> tuple:
     launches = read_launches()  # ... and ends here
     done = {k: launches[k] - before[k] for k in launches}
     want = {**dict.fromkeys(done, 0), "flash_attention_fwd_mh": GEO_MH_SITES,
-            "flash_attention_fwd": GEO_SITES[(768, 768)] - GEO_MH_SITES, **gn_route(geo_request_norms())}
+            "flash_attention_fwd": GEO_SITES[(768, 768)] - GEO_MH_SITES, **geo_request_gn((768, 768), torch.bfloat16)}
     check(done == want, f"E2EFT_FA_HP=2 request launched {done}")
     ref = outputs[((768, 768), "indoor")]
     mh_err = max(np.abs(mh.depth_np - ref.depth_np).max(), np.abs(mh.normal_np - ref.normal_np).max())
@@ -1821,7 +1928,8 @@ def phase_geowizard_train_parity() -> tuple:
         for n, e in {**leaf_rel, worst: worst_rel}.items():
             check(e <= TRAIN_PARITY_BOUNDS["leaf"], f"{mode}: {n} rel max|d| {e}")
         check(len(sites) == GEO_TRAIN_SITES_256, f"GeoWizard joint kernel sites at 256x256: {sites}")
-        check(launches == step_launches(GEO_TRAIN_SITES_256, e2e=e2e), f"{mode}: launches {launches}")
+        check(launches == step_launches(GEO_TRAIN_SITES_256, e2e=e2e, hw=(256, 256), dtype=torch.float32),
+              f"{mode}: launches {launches}")
         for name in [f"{site}.{proj}.weight" for site in sites for proj in ("to_q", "to_k", "to_v")] + [
                 "class_embedding.linear_1.weight"]:
             g = grads_g[name]
@@ -2070,7 +2178,7 @@ def phase_slice_c_parity(fa) -> None:
         check(bool(torch.isfinite(got).all()), f"gpu {kind} depth not finite")
         check(err <= bound, f"fp32 {kind} gpu vs cpu max|d| {err} > {bound}")
         check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": expect,
-                           **gn_route(request_norms(1, SLICE_C_STEPS))}, f"{kind}: launches {launches}")
+                           **request_gn((256, 256), torch.float32, 1, SLICE_C_STEPS)}, f"{kind}: launches {launches}")
     reset_launches()
     got = gpu.infer(rgb.cuda(), SLICE_C_STEPS, latent0=ens_latent0.cuda())
     torch.cuda.synchronize()
@@ -2216,7 +2324,7 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     members = BASELINE["ensemble_size"]
     batch = pipe.find_batch_size(members, max(BASELINE_HW))
     expect = request_launches(-(-members // batch), BASELINE["denoising_steps"], UNET_SITES_480x640)
-    norms = request_norms(-(-members // batch), BASELINE["denoising_steps"])  # the GroupNorm route's, a request
+    norms = request_gn(BASELINE_HW, torch.bfloat16, -(-members // batch), BASELINE["denoising_steps"])
     bfgs = []
     with traced_bfgs("phase15a", times=bfgs):
         reset_launches()  # the main path's run starts here
@@ -2254,7 +2362,7 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     members = LCM_REQUEST["ensemble_size"]
     lcm_chunks = -(-members // lcm.find_batch_size(members, max(LCM_HW)))
     lcm_expect = request_launches(lcm_chunks, LCM_REQUEST["denoising_steps"], UNET_SITES_768)
-    lcm_norms = request_norms(lcm_chunks, LCM_REQUEST["denoising_steps"])
+    lcm_norms = request_gn(LCM_HW, torch.bfloat16, lcm_chunks, LCM_REQUEST["denoising_steps"])
     torch.cuda.reset_peak_memory_stats()
     with traced_bfgs("phase15b"):
         results = timed_requests(lcm, image, [dict(LCM_REQUEST, seed=s) for s in (0, 0, 1)])
@@ -2270,7 +2378,7 @@ def phase_marigold_ensembles(fa, ckpt: str) -> int:
     check(not np.array_equal(results[0][0].depth_np, results[2][0].depth_np), "LCM: another seed, same depth")
     check(launches == {**dict.fromkeys(launches, 0),
                        "flash_attention_fwd": len(warmup + runs) * expect + len(results) * lcm_expect,
-                       **gn_route(len(warmup + runs) * norms + len(results) * lcm_norms)},
+                       **gn_sum((len(warmup + runs), norms), (len(results), lcm_norms))},
           f"slice C's Marigold requests launched {launches}")
     return launches["flash_attention_fwd"]
 
@@ -2297,8 +2405,8 @@ def phase_geowizard_ensemble(fa, pipe) -> int:
           f"batch {batch}: latency ms {[round(t, 1) for _, t, _ in results]}; kernel 1 launches a request "
           f"{[n for _, _, n in results]} (expected {expect}); peak device memory {peak:.3f} GiB", flush=True)
     check(all(n == expect for _, _, n in results), f"GeoWizard ensemble launches {[n for _, _, n in results]}")
-    norms = geo_request_norms(-(-members // batch), GEO_ENSEMBLE["denoising_steps"])
-    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * expect, **gn_route(2 * norms)},
+    norms = geo_request_gn(GEO_ENSEMBLE_HW, torch.bfloat16, -(-members // batch), GEO_ENSEMBLE["denoising_steps"])
+    check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * expect, **gn_sum((2, norms))},
           f"launched {launches}")
     check(np.array_equal(results[0][0].normal_np, results[1][0].normal_np), "GeoWizard: same seed, different bits")
     return launches["flash_attention_fwd"]
@@ -2623,7 +2731,9 @@ def phase_eval_path(fa, ckpt: str) -> int:
               f"events", flush=True)
     launches = read_launches()  # ... and ends here
     frames = NYU_FRAMES + 2 + 2 + 4  # the dumps, the normals, two run_marigold runs
-    expect = {"flash_attention_fwd": frames * EVAL_SITES, **gn_route(frames * request_norms(1, 1))}
+    expect = {"flash_attention_fwd": frames * EVAL_SITES, **gn_sum(
+        (NYU_FRAMES + 2, request_gn(NYU_HW, torch.bfloat16)), (2, request_gn(KITTI_HW, torch.bfloat16)),
+        (4, request_gn(RUN_HW, torch.bfloat16)))}
     check(launches == {**dict.fromkeys(launches, 0), **expect}, f"the eval path launched {launches}, expected {expect}")
     return launches["flash_attention_fwd"]
 
@@ -2659,7 +2769,7 @@ def phase_eval_geowizard(fa, geo_pipe) -> int:
     print(f"[eval] cli.infer --model_type geowizard: {seconds:.1f} s with the checkpoint's load", flush=True)
     print_frames("GeoWizard NYU", NYU_HW, frames, decoders)
     check(launches == {**dict.fromkeys(launches, 0), "flash_attention_fwd": 2 * EVAL_SITES,
-                       **gn_route(2 * geo_request_norms())}, f"launched {launches}")
+                       **gn_sum((2, geo_request_gn(NYU_HW, torch.bfloat16)))}, f"launched {launches}")
     return launches["flash_attention_fwd"]
 
 
@@ -2899,14 +3009,15 @@ def phase_vkitti(work: str, rng) -> str:
 @contextlib.contextmanager
 def recorded_launches():
     """(kernel name, shape of the tensor it was launched on) of every launch
-    made inside the block, in order."""
+    made inside the block, in order (each kernel of a call that launches
+    several)."""
     from diffusion_e2e_ft_tpu_torch.kernels import _build
 
     seen, launch = [], _build.launch
 
     def record(counts, name, t, *args, **kw):
         launch(counts, name, t, *args, **kw)
-        seen.append((name, tuple(t.shape)))
+        seen.extend((n, tuple(t.shape)) for n in ((name,) if isinstance(name, str) else name))
 
     _build.launch = record
     try:
@@ -2982,7 +3093,8 @@ def held_shapes() -> dict:
     bwd = set(BWD_CASES)
     return {"flash_attention_fwd": set(ATTN_CASES) | set(eval_attention_cases()) | set(slice_c_attention_cases()),
             "flash_attention_fwd_lse": bwd, "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd,
-            "gn_channel_stats": gn | route, "gn_apply": route, "gn_silu_conv3x3": gn, "gn_silu_conv3x3_v2": gn}
+            "gn_channel_stats": gn | route, "gn_apply": route, "gn_group": route, "gn_silu_conv3x3": gn,
+            "gn_silu_conv3x3_v2": gn}
 
 
 def phase_train_from_trees(ckpt: str, hypersim: str, vkitti: str) -> dict:
@@ -3021,7 +3133,7 @@ def phase_train_from_trees(ckpt: str, hypersim: str, vkitti: str) -> dict:
                   f"{modality}: steps at {[s['hw'] for s in steps]}")
             for s in steps:
                 check(bool(np.isfinite(s["loss"])), f"{modality} step at {s['hw']}: loss {s['loss']}")
-                check(s["launches"] == step_launches(UNET_SITES_480x640),
+                check(s["launches"] == step_launches(UNET_SITES_480x640, hw=s["hw"]),
                       f"{modality} step at {s['hw']}: launches {s['launches']}, expected step_launches(15)")
                 for name, shape in s["shapes"]:
                     check(shape[:4] in held[name], f"{modality} step at {s['hw']}: {name} at {shape}, a shape "
@@ -3746,7 +3858,7 @@ def phase_goldens() -> dict:
     GeoWizard, again under `E2EFT_FA_HP=2`; the SD2 depth train step with
     the fused VAE, again under `E2EFT_GNCONV_IMPL=v2`) and the tiny Tier-1
     goldens of the main path (Marigold single step, the SD2 train step).
-    Every one of kernels 1-8 and the GroupNorm apply must launch. Then the card set's serving
+    Every one of kernels 1-8, the GroupNorm apply and the one-launch GroupNorm must launch. Then the card set's serving
     goldens in bf16: max |d| against the fp32 goldens, printed (no bound).
     Returns the phase's launches."""
     R, P = load_test_module("_torch_golden"), load_test_module("_torch_golden_port")
@@ -3788,29 +3900,33 @@ def phase_goldens() -> dict:
         """The golden's UNet and VAE configs, as the port's modules hold them."""
         return P.new_module("unet", g.meta["unet"]).config, P.new_module("vae", g.meta["vae"]).config
 
-    def single_norms(g) -> int:
-        """Standalone GroupNorms of one single-step request of the golden's models (the GroupNorm route's)."""
-        return request_norms(1, 1, *configs(g))
+    def single_gn(g, dtype, hw=None) -> dict:
+        """The GroupNorm kernels' launches of one single-step request of the golden's models at its image."""
+        return request_gn(tuple(hw or g.meta["image_hw"][0]), dtype, 1, 1, *configs(g))
 
     reset_launches()
     # tiny: no attention kernel site and no GN -> conv pair in the kernels' envelope (C % 128); every standalone
-    # GroupNorm takes the route, the fused VAE's pairs the plain composite
+    # GroupNorm takes the GroupNorm kernels, the fused VAE's pairs the plain composite
     g = R.Golden("marigold_single")
     held(g, P.single_step(g, P.marigold_pipeline(g, P.modules(g, dev), dev), ("_64", "_72x56")), "",
-         gn_route(4 * single_norms(g)))  # two images, depth and normals
+         gn_sum(*((2, single_gn(g, torch.float32, hw)) for hw in g.meta["image_hw"])))  # depth and normals
     g = R.Golden("train_sd2")
     unet_cfg, vae_cfg = configs(g)
-    step_norms = (2 * norm_count("unet", config=unet_cfg) + norm_count("encoder", True, vae_cfg)
-                  + norm_count("decoder", True, vae_cfg))
+    hw = tuple(g.meta["image_hw"][0])
+    step_gn = gn_sum((2, gn_launches("unet", hw, torch.float32, config=unet_cfg)),
+                     (1, gn_launches("encoder", hw, torch.float32, True, vae_cfg)),
+                     (1, gn_launches("decoder", hw, torch.float32, True, vae_cfg)))
     held(g, {k: v for m in g.meta["modalities"] for k, v in P.train_step(g, P.modules(g, dev), f"{m}.", dev, m).items()},
-         "", gn_route(len(g.meta["modalities"]) * step_norms))
+         "", gn_sum((len(g.meta["modalities"]), step_gn)))
 
     g = R.Golden("card_marigold")
-    marigold = {"flash_attention_fwd": 2 * (GOLDEN_UNET_SITES + 2), **gn_route(2 * single_norms(g))}  # depth, normals
+    marigold = {"flash_attention_fwd": 2 * (GOLDEN_UNET_SITES + 2)}  # depth, normals
     mods = weights_of(g)
-    held(g, P.single_step(g, P.marigold_pipeline(g, mods, dev)), " fp32", marigold)
+    held(g, P.single_step(g, P.marigold_pipeline(g, mods, dev)), " fp32",
+         {**marigold, **gn_sum((2, single_gn(g, torch.float32)))})
     bf16 = {k: copy.deepcopy(m) for k, m in mods.items()}
-    drift(g, P.single_step(g, P.marigold_pipeline(g, bf16, dev, torch.bfloat16)), marigold)
+    drift(g, P.single_step(g, P.marigold_pipeline(g, bf16, dev, torch.bfloat16)),
+          {**marigold, **gn_sum((2, single_gn(g, torch.bfloat16)))})
     del bf16
     g_train = R.Golden("card_train")
     check(g_train.meta["weights"] == g.meta["weights"] and all(
@@ -3818,7 +3934,7 @@ def phase_goldens() -> dict:
     initial = {n: p.detach().clone() for n, p in mods["unet"].named_parameters()}
     card_unet = configs(g_train)[0]
     held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v1",
-         step_launches(GOLDEN_UNET_SITES, unet_config=card_unet))
+         step_launches(GOLDEN_UNET_SITES, unet_config=card_unet, hw=(256, 256), dtype=torch.float32))
     with torch.no_grad():
         for n, p in mods["unet"].named_parameters():
             p.copy_(initial[n])
@@ -3826,7 +3942,7 @@ def phase_goldens() -> dict:
     os.environ["E2EFT_GNCONV_IMPL"] = "v2"
     try:
         held(g_train, P.train_step(g_train, mods, "depth.", dev, "depth"), " v2",
-             step_launches(GOLDEN_UNET_SITES, "v2", unet_config=card_unet))
+             step_launches(GOLDEN_UNET_SITES, "v2", unet_config=card_unet, hw=(256, 256), dtype=torch.float32))
     finally:
         del os.environ["E2EFT_GNCONV_IMPL"]
     del mods
@@ -3834,7 +3950,7 @@ def phase_goldens() -> dict:
     torch.cuda.empty_cache()
 
     g = R.Golden("card_geowizard")
-    geowizard = {"flash_attention_fwd": GOLDEN_UNET_SITES + 2, **gn_route(single_norms(g))}
+    geowizard = {"flash_attention_fwd": GOLDEN_UNET_SITES + 2, **single_gn(g, torch.float32)}
     mods = weights_of(g)
     pipe = P.geowizard_pipeline(mods, dev)
     held(g, P.geowizard(g, pipe, ensemble=False), " fp32", geowizard)
@@ -3846,7 +3962,7 @@ def phase_goldens() -> dict:
     finally:
         del os.environ["E2EFT_FA_HP"]
     drift(g, P.geowizard(g, P.geowizard_pipeline({k: copy.deepcopy(m) for k, m in mods.items()}, dev, torch.bfloat16),
-                         ensemble=False), geowizard)
+                         ensemble=False), {**geowizard, **single_gn(g, torch.bfloat16)})
     del pipe, mods
     gc.collect()
     torch.cuda.empty_cache()
@@ -3909,10 +4025,10 @@ def run(dp_work: str) -> int:
     phase_grad_route(fa)
     numbers.update(phase_gn_kernels())
     route = phase_gn_route()
-    numbers["gn_apply"] = route["gn_apply"]
+    numbers["gn_apply"], numbers["gn_group"] = route["gn_apply"], route["gn_group"]
     numbers["gn_channel_stats"]["max_abs_err"] = max(numbers["gn_channel_stats"]["max_abs_err"],
                                                      route["gn_channel_stats_route_err"])
-    # every GroupNorm route launch of the in-process paths, phases 5 to 17 and the GeoWizard phases, is recorded:
+    # every GroupNorm kernel launch of the in-process paths, phases 5 to 17 and the GeoWizard phases, is recorded:
     # each must fall at a shape phase 4c held
     route_record = contextlib.ExitStack()
     recorded = route_record.enter_context(recorded_launches())
@@ -3984,11 +4100,11 @@ def run(dp_work: str) -> int:
                  encoder=geo_modules[2], dtype=torch.bfloat16)
     del geo_modules
     route_record.close()
-    route_seen = {shape for name, shape in recorded if name == "gn_apply"}
-    check(route_seen <= route_shapes(), f"the GroupNorm route ran at {sorted(route_seen - route_shapes())}, shapes "
-          "phase 4c does not hold")
-    print(f"[gn-route] the in-process paths launched the route at {len(route_seen)} shapes, each held by phase 4c "
-          f"({len(route_shapes())} shapes)", flush=True)
+    route_seen = {shape for name, shape in recorded if name in ("gn_apply", "gn_group")}
+    check(route_seen <= route_shapes(), f"the GroupNorm kernels ran at {sorted(route_seen - route_shapes())}, "
+          "shapes phase 4c does not hold")
+    print(f"[gn-route] the in-process paths launched the GroupNorm kernels at {len(route_seen)} shapes, each held "
+          f"by phase 4c ({len(route_shapes())} shapes)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(dp_work)  # slice F's main path, in processes of its own
@@ -4007,6 +4123,8 @@ def run(dp_work: str) -> int:
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention.py:407"),
         "gn_channel_stats": ("groupnorm.cu", "groupnorm.py:88"),
         "gn_apply": ("groupnorm.cu", "groupnorm.py:141-148 (XLA's apply after _stats_kernel; no Pallas kernel)"),
+        "gn_group": ("groupnorm.cu", "groupnorm.py:88 (_stats_kernel, with XLA's apply after it at :141-148, in "
+                                     "one launch where a group fits)"),
         "gn_silu_conv3x3": ("gn_conv.cu", "gn_conv.py:80"),
         "gn_silu_conv3x3_v2": ("gn_conv.cu", "gn_conv.py:209"),
     }

@@ -7,7 +7,10 @@ library with a plain C interface. The library goes into `_build/<hash>/`
 beside the package (listed in `.gitignore`), keyed by a hash of the sources,
 the headers and the flags, so an edited source rebuilds and an unchanged one
 loads at once. The build runs at first use, never at import time. `launch`
-calls an entry point on a tensor's device and stream and counts the launch.
+calls an entry point on a tensor's device and stream and counts the launch:
+every kernel of the port launches through it, so it keeps its host path
+short (the entry point looked up once, no device guard on the current
+device, the raw stream handle).
 """
 
 from __future__ import annotations
@@ -116,6 +119,9 @@ def load_library() -> ctypes.CDLL:
         "e2eft_gn_channel_stats": [ptr, ptr, i32, i32, i32, i64, ptr],  # x, out, dtype, B, C, n
         # x, stats, w, b, out, dtype, affine dtype, B, C, n, groups, eps, silu
         "e2eft_gn_apply": [ptr] * 5 + [i32, i32, i32, i32, i64, i32, f32, i32, ptr],
+        # x, w, b, out, stats (null where one launch takes the GroupNorm), dtype, affine dtype, B, C, n, groups,
+        # eps, silu
+        "e2eft_group_norm": [ptr] * 5 + [i32, i32, i32, i32, i64, i32, f32, i32, ptr],
         # x, stats, gn weight, gn bias, w, bias, out, dtype, silu, B, C, Cout, H, W, groups, eps
         "e2eft_gn_silu_conv3x3": [ptr] * 7 + [i32] * 8 + [f32, ptr],
         # x, gn weight, gn bias, w, bias, out, stats, parts, dtype, silu, B, C, Cout, H, W, groups, eps
@@ -128,12 +134,29 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def launch(counts: dict, name: str, t: torch.Tensor, *args, entry: Optional[str] = None) -> None:
+@functools.lru_cache(maxsize=None)
+def entry_point(name: str):
+    """The library's C function `e2eft_<name>`, looked up once."""
+    return getattr(load_library(), "e2eft_" + name)
+
+
+def launch(counts: dict, name, t: torch.Tensor, *args, entry: Optional[str] = None) -> None:
     """Call the C entry point `e2eft_<entry or name>` on t's device and current
-    stream; raise if the launch failed, add one to `counts[name]` if not."""
-    fn = getattr(load_library(), "e2eft_" + (entry or name))
-    with torch.cuda.device(t.device):
-        err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    stream; raise if the launch failed, add one to `counts[n]` for each kernel
+    name n in `name` (a name, or a tuple of the names of the kernels that the
+    one call launched) if not. The device guard is taken only when t is not on
+    the current device, and the stream goes to C as its raw handle."""
+    fn = entry_point(entry or name)
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (code {err}) at {tuple(t.shape)} {t.dtype}")
-    counts[name] += 1
+    if isinstance(name, str):
+        counts[name] += 1
+    else:
+        for n in name:
+            counts[n] += 1

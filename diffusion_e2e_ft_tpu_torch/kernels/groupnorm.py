@@ -12,17 +12,23 @@ dispatcher. Port of `diffusion_e2e_ft_tpu/kernels/groupnorm.py`.
   version. The kernel splits a long row over a cluster of
   `stats_parts(B * C, N)` blocks and adds their sums in rank order;
   `STATS_SPLIT` mirrors its constants (a test parses the source). Its
-  callers: `group_norm_kernel` below and the fused GN -> conv
-  (`kernels/gn_conv.py`).
+  caller: the fused GN -> conv (`kernels/gn_conv.py`); `group_norm_kernel`
+  reaches the same kernel from C.
 - `group_norm_apply` launches `csrc/groupnorm.cu`'s apply kernel, which
   replaces no Pallas kernel but the XLA normalize + affine + SiLU that
   follows `_stats_kernel` in `_pallas_group_norm`: `fold_stats`' a, b, then
   x * a + b and the optional SiLU in fp32. `group_norm_apply_reference` is
   its plain version.
-- `group_norm_kernel` (statistics, then apply: two launches) mirrors
-  `_pallas_group_norm`, and `GroupNormFunction` mirrors `_fused`: the
-  forward runs the kernels and saves x and the affine; the backward
-  recomputes `group_norm_reference` and returns its vector-Jacobian product.
+- `group_norm_kernel` mirrors `_pallas_group_norm` in one C call
+  (`e2eft_group_norm`): where a (b, g) slab of x fits the shared memory of
+  a cluster (`group_fits`; `GROUP_RULE` mirrors the source's constants), one
+  launch of `csrc/groupnorm.cu::gn_group_kernel`, which replaces
+  `_stats_kernel` and XLA's apply together; elsewhere (the VAE's 384x384
+  and 768x768 layers) the statistics kernel, then the apply. The choice is
+  the shape's and dtype's alone; `group_norm_reference` is the plain version
+  of both. `GroupNormFunction` mirrors `_fused`: the forward runs the
+  kernels and saves x and the affine; the backward recomputes
+  `group_norm_reference` and returns its vector-Jacobian product.
 - `group_norm_silu` dispatches, as the JAX function of that name: a CPU
   tensor takes `group_norm_reference`; a CUDA tensor takes the kernels (alone
   when no gradient is wanted, through `GroupNormFunction` when one is) or
@@ -40,6 +46,7 @@ dispatcher. Port of `diffusion_e2e_ft_tpu/kernels/groupnorm.py`.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -48,10 +55,14 @@ import torch.nn.functional as F
 from diffusion_e2e_ft_tpu_torch.kernels import _build
 
 # Kernel launches since the last `reset_launches()`.
-launches = {"gn_channel_stats": 0, "gn_apply": 0}
+launches = {"gn_channel_stats": 0, "gn_apply": 0, "gn_group": 0}
 # `csrc/groupnorm.cu`: blocks a (b, c) row at most, values a block at least before a row is split further,
 # and resident blocks an SM
 STATS_SPLIT = {"kStatsMaxParts": 8, "kStatsMinSegment": 16384, "kStatsBlocksPerSm": 8}
+# `csrc/groupnorm.cu`, the one-launch GroupNorm: blocks (a cluster) a (b, g) slab at most, dynamic shared
+# memory a block at most (its share of the slab, then the group's a, b), and bytes of a share at least before a
+# slab is split further
+GROUP_RULE = {"kGroupMaxParts": 8, "kGroupSmemBytes": 229376, "kGroupMinShareBytes": 16384}
 
 
 def stats_parts(rows: int, n: int, sms: int = 132) -> int:
@@ -62,6 +73,42 @@ def stats_parts(rows: int, n: int, sms: int = 132) -> int:
            and rows * parts * 2 <= wave):
         parts *= 2
     return parts
+
+
+def group_smem(slab_bytes: int, gs: int, parts: int) -> int:
+    """Dynamic shared memory of a block of the one-launch kernel: the largest
+    of `parts` shares of a slab's 16-byte vectors, then gs fp32 a and b."""
+    return (slab_bytes // 16 + parts - 1) // parts * 16 + 8 * gs
+
+
+def group_parts(rows: int, slab_bytes: int, gs: int, sms: int = 132) -> int:
+    """Blocks (a cluster) that take one of `rows` (b, g) slabs of slab_bytes
+    bytes and gs channels on a card of `sms` SMs (132: the H100 SXM): the
+    kernel's rule. 0: the slab does not fit, and the GroupNorm takes the
+    statistics kernel and the apply."""
+    parts = 1
+    while group_smem(slab_bytes, gs, parts) > GROUP_RULE["kGroupSmemBytes"]:
+        if parts == GROUP_RULE["kGroupMaxParts"]:
+            return 0
+        parts *= 2
+    while (parts < GROUP_RULE["kGroupMaxParts"] and slab_bytes // (2 * parts) >= GROUP_RULE["kGroupMinShareBytes"]
+           and rows * parts * 2 <= sms):
+        parts *= 2
+    return parts
+
+
+def slab_fits(slab_bytes: int, gs: int) -> bool:
+    """`group_parts(...) > 0` on any card: the slab fits when it fits
+    kGroupMaxParts blocks."""
+    return group_smem(slab_bytes, gs, GROUP_RULE["kGroupMaxParts"]) <= GROUP_RULE["kGroupSmemBytes"]
+
+
+def group_fits(shape, dtype: torch.dtype, groups: int) -> bool:
+    """Whether a GroupNorm of an x of `shape` ([B, C, H, W] or [B, C, N]) and
+    `dtype` takes the one-launch kernel: its slab's bytes and channels alone
+    decide."""
+    gs = shape[1] // groups
+    return slab_fits(gs * math.prod(shape[2:]) * dtype.itemsize, gs)
 
 
 def reset_launches() -> None:
@@ -94,7 +141,7 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
     b, c = x.shape[:2]
     out = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
     _build.launch(launches, "gn_channel_stats", x, x.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[x.dtype],
-                  b, c, x[0, 0].numel())
+                  b, c, x.numel() // (b * c))
     return out
 
 
@@ -185,15 +232,51 @@ def group_norm_apply(
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _build.launch(launches, "gn_apply", x, x.data_ptr(), stats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                   out.data_ptr(), _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[weight.dtype], b, c,
-                  x[0, 0].numel(), groups, float(eps), int(silu))
+                  x.numel() // (b * c), groups, float(eps), int(silu))
     return out
 
 
 def group_norm_kernel(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, silu: bool = True
 ) -> torch.Tensor:
-    """`group_norm_reference` with the CUDA kernels: the statistics, then the apply."""
-    return group_norm_apply(x, channel_stats(x), weight, bias, groups, eps, silu)
+    """`group_norm_reference` with the CUDA kernels, one C call: the
+    one-launch kernel where `group_fits`, else the statistics, then the
+    apply. x a contiguous fp32 or bf16 CUDA tensor, [B, C, H, W] or
+    [B, C, N], non-empty, C a multiple of `groups`; the affine [C],
+    contiguous, fp32 or bf16 (one dtype for both) on x's device. Raises on
+    anything else."""
+    shape = x.shape
+    code = _build.DTYPE_CODES.get(x.dtype)
+    if not x.is_cuda:
+        raise ValueError(f"group_norm: x is on {x.device}, the kernel needs a CUDA tensor")
+    if code is None:
+        raise TypeError(f"group_norm: x is {x.dtype}; the kernel takes float32 or bfloat16")
+    if len(shape) not in (3, 4) or not x.is_contiguous():
+        raise ValueError(f"group_norm: x must be a contiguous [B, C, H, W] or [B, C, N], got {tuple(shape)}")
+    b, c = shape[0], shape[1]
+    n = shape[2] * shape[3] if len(shape) == 4 else shape[2]
+    if b * c * n == 0:
+        raise ValueError(f"group_norm: x is empty, {tuple(shape)}")
+    if groups <= 0 or c % groups:
+        raise ValueError(f"group_norm: {c} channels do not split into {groups} groups")
+    index = x.get_device()
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.get_device() != index or t.shape != (c,) or not t.is_contiguous():
+            raise ValueError(f"group_norm: {name} {tuple(t.shape)} on {t.device}, expected a contiguous [{c}] on "
+                             f"{x.device}")
+    affine = _build.DTYPE_CODES.get(weight.dtype)
+    if affine is None or weight.dtype != bias.dtype:
+        raise TypeError(f"group_norm: weight {weight.dtype} and bias {bias.dtype}; the kernels take one dtype for "
+                        "both, float32 or bfloat16")
+    out = torch.empty_like(x)
+    gs = c // groups
+    one = slab_fits(gs * n * x.element_size(), gs)
+    stats = None if one else torch.empty((b, 2, c), dtype=torch.float32, device=x.device)  # the route's sums
+    kernels = ("gn_group",) if one else ("gn_channel_stats", "gn_apply")
+    _build.launch(launches, kernels, x, x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  None if one else stats.data_ptr(), code, affine, b, c, n, groups, float(eps), int(silu),
+                  entry="group_norm")
+    return out
 
 
 # the forwards the autograd Function runs; its backward is always the plain version's

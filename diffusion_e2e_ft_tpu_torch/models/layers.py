@@ -55,7 +55,8 @@ class GroupNormAct(nn.Module):
     """GroupNorm with optional fused SiLU; fp32 one-pass statistics.
 
     `kernels.groupnorm.group_norm_silu`: the plain version on the CPU; on the
-    card the statistics and apply kernels (two launches a call), through
+    card one C call a GroupNorm (one kernel launch where a group fits on
+    chip, else the statistics and apply kernels), through
     `GroupNormFunction` when a gradient is wanted."""
 
     def __init__(self, groups: int, channels: int, eps: float = 1e-5, silu: bool = True):

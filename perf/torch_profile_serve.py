@@ -59,7 +59,7 @@ BASELINE_WARM = 5  # warm baseline requests timed on the host clock
 KINDS = (
     ("flash attention fwd (ours)", ("flash_fwd_kernel",)),
     ("flash attention bwd (ours)", ("flash_bwd_",)),
-    ("GN stats, apply, GN -> conv (ours)", ("gn_conv", "channel_stats_kernel", "gn_apply")),
+    ("GroupNorm, GN -> conv (ours)", ("gn_conv", "channel_stats_kernel", "gn_apply", "gn_group")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
     ("GEMMs", ("gemm", "cutlass", "cublas", "nvjet")),

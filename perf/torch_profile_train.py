@@ -131,8 +131,9 @@ def main() -> int:
         by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + e.device_time / 1e3
     stats_ms = sum(e.device_time for e in kernels if "channel_stats_kernel" in e.name) / 1e3
     apply_ms = sum(e.device_time for e in kernels if "gn_apply" in e.name) / 1e3
-    print(f"{tag}   of which GN statistics {stats_ms / STEPS:.2f} ms, GN apply {apply_ms / STEPS:.2f} ms per step",
-          flush=True)
+    group_ms = sum(e.device_time for e in kernels if "gn_group" in e.name) / 1e3
+    print(f"{tag}   of which GN statistics {stats_ms / STEPS:.2f} ms, GN apply {apply_ms / STEPS:.2f} ms, one-launch "
+          f"GN {group_ms / STEPS:.2f} ms per step", flush=True)
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"{tag}   {kind:28s} {ms / STEPS:8.2f} ms per step", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

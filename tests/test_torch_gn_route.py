@@ -192,7 +192,8 @@ def test_chip_smoke_counts_the_route_from_the_module_tree(monkeypatch):
     """`chip_smoke.py`'s launch expectations come from the GroupNormAct
     modules a forward visits (on the meta device): 61 in the SD2 UNet, 22 in
     the VAE encoder and 30 in the decoder; 2 and 2 outside the fused VAE's
-    GN -> conv pairs."""
+    GN -> conv pairs; each GroupNorm of a step one launch of the one-launch
+    kernel or one of the statistics and one of the apply."""
     cs = load_chip_smoke(monkeypatch)
     counts = {part: cs.norm_count(part) for part in ("unet", "encoder", "decoder")}
     assert counts == {"unet": 61, "encoder": 22, "decoder": 30}
@@ -200,7 +201,7 @@ def test_chip_smoke_counts_the_route_from_the_module_tree(monkeypatch):
     assert cs.norm_count("unet", config=UNetConfig.geowizard()) == 61  # its steps share step_launches' SD2 count
     assert cs.request_norms(1, 1) == 113
     step = cs.step_launches(15)
-    assert step["gn_apply"] == 2 * 61 + 2 + 2 and step["gn_channel_stats"] == step["gn_apply"] + 48
+    assert step["gn_group"] + step["gn_apply"] == 2 * 61 + 2 + 2 and step["gn_channel_stats"] == step["gn_apply"] + 48
     assert set(cs.norm_visits("decoder", 1, (768, 768))) >= {(1, 128, 768, 768), (1, 512, 96, 96)}
 
 
