@@ -5,7 +5,9 @@ walks an image folder, runs the Marigold pipeline on `--device` (default
 cuda), saves `depth_npy/*.npy`, `depth_colored/*.png` and 16-bit
 `depth_bw/*.png` (or `normal_npy` / `normal_colored` with `--normals`).
 `--profile_dir` writes a `torch.profiler` trace of the run there
-(`trace.json`, Chrome trace format).
+(`trace.json`, Chrome trace format) and the port's own spans of the run
+(`spans.jsonl`, one span a line: name, span, parent and request ids, start
+and end in `time.time_ns()` nanoseconds, counters; `utils/trace.py`).
 
     python -m diffusion_e2e_ft_tpu_torch.cli.run_marigold --checkpoint <dir> \\
         --input_rgb_dir <dir> --output_dir <dir> --half_precision
@@ -14,6 +16,7 @@ cuda), saves `depth_npy/*.npy`, `depth_colored/*.png` and 16-bit
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import numpy as np
@@ -28,6 +31,7 @@ from diffusion_e2e_ft_tpu_torch.cli.common import (
     save_image,
 )
 from diffusion_e2e_ft_tpu_torch.ops import image as im
+from diffusion_e2e_ft_tpu_torch.utils import trace
 from diffusion_e2e_ft_tpu_torch.utils.logging import write_arguments
 from diffusion_e2e_ft_tpu_torch.utils.seeding import seed_all
 
@@ -57,7 +61,8 @@ def build_parser():
 @contextlib.contextmanager
 def profiled(profile_dir, device):
     """torch.profiler over the block (CUDA activity too on a CUDA device),
-    its Chrome trace written to `profile_dir/trace.json`; nothing without a
+    its Chrome trace written to `profile_dir/trace.json` and the spans the
+    port recorded meanwhile to `profile_dir/spans.jsonl`; nothing without a
     directory."""
     if not profile_dir:
         yield
@@ -65,10 +70,14 @@ def profiled(profile_dir, device):
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    trace.clear()
     with profile(activities=activities) as prof:
         yield
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    with open(os.path.join(profile_dir, "spans.jsonl"), "w") as f:
+        for s in trace.spans():
+            f.write(json.dumps(s._asdict()) + "\n")
     print(f"[run] profiler trace written to {profile_dir}", flush=True)
 
 

@@ -23,6 +23,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from diffusion_e2e_ft_tpu_torch.utils import trace
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, fromfile_prefix_chars="@")
@@ -52,7 +54,7 @@ class PipelineService:
         self.ready = True
 
     def predict(self, rgb: np.ndarray, normals: bool) -> np.ndarray:
-        with self.lock:
+        with self.lock, trace.request(self.pipe.device):
             out = self.pipe(
                 rgb,
                 denoising_steps=self.denoise_steps,

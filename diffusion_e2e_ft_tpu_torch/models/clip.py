@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffusion_e2e_ft_tpu_torch.models.layers import LayerNormFP32
+from diffusion_e2e_ft_tpu_torch.utils import trace
 
 BOS_TOKEN_ID = 49406
 EOS_TOKEN_ID = 49407
@@ -186,6 +187,7 @@ class CLIPVisionModelWithProjection(nn.Module):
         self.vision_model = _VisionTransformer(config)
         self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
 
+    @trace.traced("image_encoder")
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         vm = self.vision_model
         emb = vm.embeddings

@@ -25,6 +25,7 @@ from diffusion_e2e_ft_tpu_torch.models.layers import (
     Upsample,
     timestep_embedding,
 )
+from diffusion_e2e_ft_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +192,7 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNormAct(c.norm_num_groups, ch[0], c.norm_eps)
         self.conv_out = nn.Conv2d(ch[0], c.out_channels, 3, padding=1)
 
+    @trace.traced("unet")
     def forward(
         self,
         sample: torch.Tensor,

@@ -20,6 +20,7 @@ from diffusion_e2e_ft_tpu_torch.models.layers import (
     Upsample,
     VAEAttention,
 )
+from diffusion_e2e_ft_tpu_torch.utils import trace
 
 SD_LATENT_SCALE = 0.18215
 
@@ -158,11 +159,13 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
 
+    @trace.traced("encode")
     def encode_mean(self, x: torch.Tensor) -> torch.Tensor:
         """[B,3,H,W] in [-1,1] -> posterior mean [B,4,H/8,W/8] (not scaled)."""
         moments = self.quant_conv(self.encoder(x))
         return moments[:, : self.config.latent_channels]
 
+    @trace.traced("decode")
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[B,4,h,w] (unscaled) -> [B,3,8h,8w]."""
         return self.decoder(self.post_quant_conv(z))

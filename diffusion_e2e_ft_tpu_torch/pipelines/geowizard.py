@@ -16,7 +16,8 @@ normal halves; it runs the members in chunks of `batch_size`, each chunk one
 2N batch through the UNet (joint attention over each member's pair) and the
 decode, and ensembles them: `ensemble_depths` for depth with its
 uncertainty, `ensemble_normals` for normals. `with_mesh` splits each chunk's
-members over several devices.
+members over several devices. Under a profiler session `__call__` records
+the spans of `utils/trace.py`, as `MarigoldPipeline.__call__` does.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
 from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy, mesh_replicas, run_members
 from diffusion_e2e_ft_tpu_torch.pipelines.marigold import init_random_
+from diffusion_e2e_ft_tpu_torch.utils import trace
 
 DOMAINS = ("indoor", "outdoor", "object")
 
@@ -156,6 +158,7 @@ class GeoWizardPipeline:
             init_random_(m, gen)
         return cls(*modules, scheduler_config or sched_ops.SchedulerConfig(), device=device, dtype=dtype)
 
+    @trace.traced("infer")
     @torch.inference_mode()
     def infer(
         self, rgb: torch.Tensor, domain: str = "indoor", num_steps: int = 1, latent0: Optional[torch.Tensor] = None
@@ -208,45 +211,45 @@ class GeoWizardPipeline:
         """The JAX package's arguments, in its order. `seed` (default 0)
         seeds the generator of the noise; `batch_size` members run a device
         call (the JAX default, 1); `ensemble_kwargs` go to `ensemble_depths`."""
-        if denoising_steps < 1 or ensemble_size < 1:
-            raise ValueError("denoising_steps and ensemble_size must be >= 1")
-        img = np.asarray(image)
-        if img.ndim != 3 or img.shape[-1] != 3:
-            raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")
-        orig_hw = tuple(img.shape[:2])
+        with trace.request(self.device):
+            with trace.span("pre"):
+                if denoising_steps < 1 or ensemble_size < 1:
+                    raise ValueError("denoising_steps and ensemble_size must be >= 1")
+                img = np.asarray(image)
+                if img.ndim != 3 or img.shape[-1] != 3:
+                    raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")
+                orig_hw = tuple(img.shape[:2])
 
-        rgb = torch.from_numpy(img.astype(np.float32)).to(self.device)
-        if processing_res > 0:
-            rgb = im.resize_max_res(rgb, processing_res)
-        rgb = im.normalize_rgb(rgb)[None]
-        latent_shape = (self.vae.config.latent_channels, rgb.shape[1] // 8, rgb.shape[2] // 8)
-        generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
-        batch_size = max(1, batch_size)
-        depths, normals = [], []
-        for start in range(0, ensemble_size, batch_size):
-            latent0, _ = noise_ops.member_draws(noise, generator, min(batch_size, ensemble_size - start),
-                                                latent_shape, dtype=self.dtype)
-            d, nrm = self._infer_members(rgb, domain, denoising_steps, latent0)
-            depths.append(d)
-            normals.append(nrm)
-        depth_preds, normal_preds = torch.cat(depths), torch.cat(normals)
+                rgb = torch.from_numpy(img.astype(np.float32)).to(self.device)
+                if processing_res > 0:
+                    rgb = im.resize_max_res(rgb, processing_res)
+                rgb = im.normalize_rgb(rgb)[None]
+                latent_shape = (self.vae.config.latent_channels, rgb.shape[1] // 8, rgb.shape[2] // 8)
+                generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
+                batch_size = max(1, batch_size)
+                latents = [noise_ops.member_draws(noise, generator, min(batch_size, ensemble_size - start),
+                                                  latent_shape, dtype=self.dtype)[0]
+                           for start in range(0, ensemble_size, batch_size)]
+            depths, normals = zip(*(self._infer_members(rgb, domain, denoising_steps, z) for z in latents))
+            depth_preds, normal_preds = torch.cat(depths), torch.cat(normals)
 
-        uncertainty = None
-        if ensemble_size > 1:
-            depth, uncertainty = ens.ensemble_depths(depth_preds, **(ensemble_kwargs or {}))
-            normal = ens.ensemble_normals(normal_preds)
-            uncertainty = uncertainty.cpu().numpy()
-        else:
-            depth, normal = depth_preds[0], normal_preds[0]
+            with trace.span("post"):
+                uncertainty = None
+                if ensemble_size > 1:
+                    depth, uncertainty = ens.ensemble_depths(depth_preds, **(ensemble_kwargs or {}))
+                    normal = ens.ensemble_normals(normal_preds)
+                    uncertainty = uncertainty.cpu().numpy()
+                else:
+                    depth, normal = depth_preds[0], normal_preds[0]
 
-        depth = (depth - depth.min()) / (depth.max() - depth.min()).clamp_min(1e-8)  # min-max to [0, 1]
-        if match_input_res and tuple(depth.shape) != orig_hw:
-            depth = im.resize(depth[..., None], orig_hw, method="bicubic")[..., 0]
-            normal = im.resize(normal, orig_hw, method="nearest")
-        depth = depth.clamp(0.0, 1.0).cpu().numpy()
-        normal = normal.clamp(-1.0, 1.0).cpu().numpy()
-        colored = None
-        if color_map is not None:
-            colored = (im.colorize_depth(depth, 0.0, 1.0, cmap=color_map) * 255).astype(np.uint8)
-        return GeoWizardOutput(depth_np=depth, depth_colored=colored, normal_np=normal,
-                               normal_colored=im.colorize_normals(normal), uncertainty=uncertainty)
+                depth = (depth - depth.min()) / (depth.max() - depth.min()).clamp_min(1e-8)  # min-max to [0, 1]
+                if match_input_res and tuple(depth.shape) != orig_hw:
+                    depth = im.resize(depth[..., None], orig_hw, method="bicubic")[..., 0]
+                    normal = im.resize(normal, orig_hw, method="nearest")
+                depth = depth.clamp(0.0, 1.0).cpu().numpy()
+                normal = normal.clamp(-1.0, 1.0).cpu().numpy()
+                colored = None
+                if color_map is not None:
+                    colored = (im.colorize_depth(depth, 0.0, 1.0, cmap=color_map) * 255).astype(np.uint8)
+                return GeoWizardOutput(depth_np=depth, depth_colored=colored, normal_np=normal,
+                                       normal_colored=im.colorize_normals(normal), uncertainty=uncertainty)

@@ -12,6 +12,8 @@ seeded with `seed`, runs the ensemble in chunks of `batch_size` members
 batched natively (the JAX package maps a batch-1 graph over them, for a TPU
 layout problem), and ensembles the members (`ops/ensemble.py`) with their
 uncertainty. `with_mesh` splits each chunk's members over several devices.
+Under a profiler session `__call__` records the spans of `utils/trace.py`:
+`request` ⊃ `pre` (to the device body), each chunk's `infer`, `post`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from diffusion_e2e_ft_tpu_torch.ops import image as im
 from diffusion_e2e_ft_tpu_torch.ops import noise as noise_ops
 from diffusion_e2e_ft_tpu_torch.ops import scheduler as sched_ops
 from diffusion_e2e_ft_tpu_torch.parallel.mesh import frozen_copy, mesh_replicas, run_members
+from diffusion_e2e_ft_tpu_torch.utils import trace
 
 # max_res: members a call, from `perf/torch_batch_sweep.py` (bf16, 10 DDIM steps) on an NVIDIA H100 80GB HBM3
 # at 700 W: the least ms a member with a peak under 39.6 GiB (PERF.md, "Ensemble batch sweep")
@@ -170,6 +173,7 @@ class MarigoldPipeline:
         the stochastic schedulers (multi-step DDPM, LCM), else none."""
         return num_steps if self.scheduler_type in ("ddpm", "lcm") and num_steps > 1 else 0
 
+    @trace.traced("infer")
     @torch.inference_mode()
     def infer(
         self, rgb: torch.Tensor, num_steps: int = 1, normals: bool = False,
@@ -233,56 +237,55 @@ class MarigoldPipeline:
         seeds the generator of the noise; `batch_size` members run a device
         call (< 1: `find_batch_size`); `ensemble_kwargs` go to
         `ensemble_depths`."""
-        if denoising_steps < 1:
-            raise ValueError("denoising_steps must be >= 1")
-        if ensemble_size < 1:
-            raise ValueError("ensemble_size must be >= 1")
-        img = np.asarray(image)
-        if img.ndim != 3 or img.shape[-1] != 3:
-            raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")
-        orig_hw = tuple(img.shape[:2])
+        with trace.request(self.device):
+            with trace.span("pre"):
+                if denoising_steps < 1:
+                    raise ValueError("denoising_steps must be >= 1")
+                if ensemble_size < 1:
+                    raise ValueError("ensemble_size must be >= 1")
+                img = np.asarray(image)
+                if img.ndim != 3 or img.shape[-1] != 3:
+                    raise ValueError(f"Expected [H, W, 3] RGB image, got {img.shape}")
+                orig_hw = tuple(img.shape[:2])
 
-        rgb = torch.from_numpy(img.astype(np.float32)).to(self.device)
-        if processing_res > 0:
-            rgb = im.resize_max_res(rgb, processing_res, method=resample_method)
-        rgb = im.normalize_rgb(rgb)[None]
-        latent_shape = (self.vae.config.latent_channels, rgb.shape[1] // 8, rgb.shape[2] // 8)
-        generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
-        if batch_size < 1:
-            batch_size = self.find_batch_size(ensemble_size, max(rgb.shape[1:3]))
-        preds = []
-        for start in range(0, ensemble_size, batch_size):
-            latent0, step_noise = noise_ops.member_draws(
-                noise, generator, min(batch_size, ensemble_size - start), latent_shape,
-                self.step_noises(denoising_steps), self.dtype,
-            )
-            preds.append(self._infer_members(rgb, denoising_steps, normals, latent0, step_noise))
-        preds = torch.cat(preds)  # [E, H, W(, 3)]
+                rgb = torch.from_numpy(img.astype(np.float32)).to(self.device)
+                if processing_res > 0:
+                    rgb = im.resize_max_res(rgb, processing_res, method=resample_method)
+                rgb = im.normalize_rgb(rgb)[None]
+                latent_shape = (self.vae.config.latent_channels, rgb.shape[1] // 8, rgb.shape[2] // 8)
+                generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else seed)
+                if batch_size < 1:
+                    batch_size = self.find_batch_size(ensemble_size, max(rgb.shape[1:3]))
+                draws = [noise_ops.member_draws(noise, generator, min(batch_size, ensemble_size - start), latent_shape,
+                                                self.step_noises(denoising_steps), self.dtype)
+                         for start in range(0, ensemble_size, batch_size)]
+            preds = torch.cat([self._infer_members(rgb, denoising_steps, normals, *d) for d in draws])  # [E, H, W(, 3)]
 
-        if normals:
-            normal = ens.ensemble_normals(preds) if ensemble_size > 1 else preds[0]
-            normal = normal / (normal.norm(dim=-1, keepdim=True) + 1e-5)
-            if match_input_res and tuple(normal.shape[:2]) != orig_hw:
-                normal = im.resize(normal, orig_hw, method=resample_method)
-                normal = normal / (normal.norm(dim=-1, keepdim=True) + 1e-5)
-            normal = normal.clamp(-1.0, 1.0).cpu().numpy()
-            colored = im.colorize_normals(normal) if color_map is not None else None
-            return MarigoldOutput(normal_np=normal, normal_colored=colored)
+            with trace.span("post"):
+                if normals:
+                    normal = ens.ensemble_normals(preds) if ensemble_size > 1 else preds[0]
+                    normal = normal / (normal.norm(dim=-1, keepdim=True) + 1e-5)
+                    if match_input_res and tuple(normal.shape[:2]) != orig_hw:
+                        normal = im.resize(normal, orig_hw, method=resample_method)
+                        normal = normal / (normal.norm(dim=-1, keepdim=True) + 1e-5)
+                    normal = normal.clamp(-1.0, 1.0).cpu().numpy()
+                    colored = im.colorize_normals(normal) if color_map is not None else None
+                    return MarigoldOutput(normal_np=normal, normal_colored=colored)
 
-        uncertainty = None
-        if ensemble_size > 1:
-            depth, uncertainty = ens.ensemble_depths(preds, **(ensemble_kwargs or {}))
-            uncertainty = uncertainty.cpu().numpy()
-        else:
-            depth = preds[0]
-        depth = (depth - depth.min()) / (depth.max() - depth.min()).clamp_min(1e-8)  # min-max to [0, 1]
-        if match_input_res and tuple(depth.shape) != orig_hw:
-            depth = im.resize(depth[..., None], orig_hw, method=resample_method)[..., 0]
-        depth = depth.clamp(0.0, 1.0).cpu().numpy()
-        colored = None
-        if color_map is not None:
-            colored = (im.colorize_depth(depth, 0.0, 1.0, cmap=color_map) * 255).astype(np.uint8)
-        return MarigoldOutput(depth_np=depth, depth_colored=colored, uncertainty=uncertainty)
+                uncertainty = None
+                if ensemble_size > 1:
+                    depth, uncertainty = ens.ensemble_depths(preds, **(ensemble_kwargs or {}))
+                    uncertainty = uncertainty.cpu().numpy()
+                else:
+                    depth = preds[0]
+                depth = (depth - depth.min()) / (depth.max() - depth.min()).clamp_min(1e-8)  # min-max to [0, 1]
+                if match_input_res and tuple(depth.shape) != orig_hw:
+                    depth = im.resize(depth[..., None], orig_hw, method=resample_method)[..., 0]
+                depth = depth.clamp(0.0, 1.0).cpu().numpy()
+                colored = None
+                if color_map is not None:
+                    colored = (im.colorize_depth(depth, 0.0, 1.0, cmap=color_map) * 255).astype(np.uint8)
+                return MarigoldOutput(depth_np=depth, depth_colored=colored, uncertainty=uncertainty)
 
     @staticmethod
     def find_batch_size(ensemble_size: int, max_res: int) -> int:

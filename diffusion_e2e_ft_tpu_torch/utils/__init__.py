@@ -1,1 +1,1 @@
-"""Host-side helpers: scalar logging and a step-time meter."""
+"""Host-side helpers: scalar logging, a step-time meter and the serving path's spans."""
