@@ -10,17 +10,21 @@ loads at once. The build runs at first use, never at import time. `launch`
 calls an entry point on a tensor's device and stream and counts the launch:
 every kernel of the port launches through it, so it keeps its host path
 short (the entry point looked up once, no device guard on the current
-device, the raw stream handle).
+device, the raw stream handle). Inside `recording()` (a CUDA graph's
+capture) it records a launch in place of counting it; `options()` is what
+the kernels' wrappers read from the environment at each call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -37,6 +41,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xptxas", "-v",
     "-Xcompiler", "-fPIC",
 )
+# environment variables the kernels' wrappers read at each call (`flash_attention.heads_per_cta`, `gn_conv.impl`)
+OPTIONS = ("E2EFT_FA_HP", "E2EFT_GNCONV_IMPL")
+_local = threading.local()  # `recorded`: this thread's capture in progress, else absent or None
 
 
 class KernelBuildError(RuntimeError):
@@ -140,12 +147,30 @@ def entry_point(name: str):
     return getattr(load_library(), "e2eft_" + name)
 
 
+def options() -> tuple:
+    """The values of `OPTIONS` now: which kernels a call of the same shapes launches."""
+    return tuple(os.environ.get(name) for name in OPTIONS)
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside, this thread's launches are recorded and not counted: a CUDA
+    graph's capture, whose kernels run only when the graph is replayed.
+    Yields the list that receives (counts, kernel name), one a kernel."""
+    _local.recorded = recorded = []
+    try:
+        yield recorded
+    finally:
+        _local.recorded = None
+
+
 def launch(counts: dict, name, t: torch.Tensor, *args, entry: Optional[str] = None) -> None:
     """Call the C entry point `e2eft_<entry or name>` on t's device and current
     stream; raise if the launch failed, add one to `counts[n]` for each kernel
     name n in `name` (a name, or a tuple of the names of the kernels that the
-    one call launched) if not. The device guard is taken only when t is not on
-    the current device, and the stream goes to C as its raw handle."""
+    one call launched) if not, or record it under `recording()`. The device
+    guard is taken only when t is not on the current device, and the stream
+    goes to C as its raw handle."""
     fn = entry_point(entry or name)
     index = t.get_device()
     if index == torch._C._cuda_getDevice():
@@ -155,8 +180,9 @@ def launch(counts: dict, name, t: torch.Tensor, *args, entry: Optional[str] = No
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (code {err}) at {tuple(t.shape)} {t.dtype}")
-    if isinstance(name, str):
-        counts[name] += 1
-    else:
-        for n in name:
+    recorded = getattr(_local, "recorded", None)
+    for n in (name,) if isinstance(name, str) else name:
+        if recorded is None:
             counts[n] += 1
+        else:
+            recorded.append((counts, n))

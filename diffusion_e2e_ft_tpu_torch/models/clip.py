@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffusion_e2e_ft_tpu_torch.models.layers import LayerNormFP32
-from diffusion_e2e_ft_tpu_torch.utils import trace
+from diffusion_e2e_ft_tpu_torch.utils import graphs, trace
 
 BOS_TOKEN_ID = 49406
 EOS_TOKEN_ID = 49407
@@ -177,9 +177,10 @@ class _VisionTransformer(nn.Module):
         self.post_layernorm = LayerNormFP32(c.hidden_size, eps=c.layer_norm_eps)
 
 
-class CLIPVisionModelWithProjection(nn.Module):
+class CLIPVisionModelWithProjection(graphs.Graphed):
     """CLIP-normalized pixels [B, 3, S, S] (S = image_size) -> projected image
-    embeds [B, projection_dim], in the module's dtype."""
+    embeds [B, projection_dim], in the module's dtype. Served at a fixed
+    shape, the forward replays a CUDA graph (`utils/graphs.py`)."""
 
     def __init__(self, config: CLIPVisionConfig = CLIPVisionConfig()):
         super().__init__()
@@ -189,6 +190,9 @@ class CLIPVisionModelWithProjection(nn.Module):
 
     @trace.traced("image_encoder")
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        return self._graphs(self, self._forward, pixel_values)
+
+    def _forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         vm = self.vision_model
         emb = vm.embeddings
         patches = emb.patch_embedding(pixel_values.to(emb.patch_embedding.weight.dtype))

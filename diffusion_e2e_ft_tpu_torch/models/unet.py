@@ -25,7 +25,7 @@ from diffusion_e2e_ft_tpu_torch.models.layers import (
     Upsample,
     timestep_embedding,
 )
-from diffusion_e2e_ft_tpu_torch.utils import trace
+from diffusion_e2e_ft_tpu_torch.utils import graphs, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,9 +159,21 @@ class _UpBlock(nn.Module):
         return x
 
 
-class UNet2DCondition(nn.Module):
+def _timesteps(timesteps, sample: torch.Tensor) -> torch.Tensor:
+    """The timestep(s) as a [B] tensor on the sample's device; a Python number
+    is filled in there, with no copy from the host."""
+    if torch.is_tensor(timesteps):
+        timesteps = timesteps.to(sample.device)
+    else:
+        timesteps = torch.full(sample.shape[:1], timesteps, dtype=torch.as_tensor(timesteps).dtype,
+                               device=sample.device)
+    return timesteps.expand(sample.shape[0]) if timesteps.ndim == 0 else timesteps
+
+
+class UNet2DCondition(graphs.Graphed):
     """(latent [B,C,H,W], timestep, context [B,L,D][, class vector [B,P]]) ->
-    prediction [B,4,H,W]."""
+    prediction [B,4,H,W]. Served at a fixed shape, the forward replays a CUDA
+    graph (`utils/graphs.py`)."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
@@ -200,11 +212,12 @@ class UNet2DCondition(nn.Module):
         encoder_hidden_states: torch.Tensor,
         class_labels: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        return self._graphs(self, self._forward, sample, _timesteps(timesteps, sample), encoder_hidden_states,
+                            class_labels)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states, class_labels) -> torch.Tensor:
         c = self.config
         dtype = self.conv_in.weight.dtype
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(sample.shape[0])
         t_feat = timestep_embedding(
             timesteps, c.block_out_channels[0],
             flip_sin_to_cos=c.flip_sin_to_cos, downscale_freq_shift=c.freq_shift,

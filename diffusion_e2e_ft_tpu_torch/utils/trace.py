@@ -13,9 +13,11 @@ span is open on the thread, and on a CUDA device gives it two counters:
 CUDA sync debug mode reports: copies between the card and pageable host
 memory, `.item()`, `.tolist()`, stream synchronisations;
 `torch.cuda.synchronize()` is not among them), and `allocs`, the caching
-allocator's device calls (`cudaMalloc`, `cudaFree`, retries). Both are
-process-wide, so another thread's work during the request counts too, and
-one request at a time counts them.
+allocator's device calls (`cudaMalloc`, `cudaFree`, retries), and two of
+`utils/graphs.py`: `graph_replays`, the graphed modules' calls served by a
+CUDA graph's replay, and `graph_misses`, those that ran eagerly where a
+graph could serve them. All are process-wide, so another thread's work
+during the request counts too, and one request at a time counts them.
 
 The gate is the profiler's own Python flag, raised and lowered by every
 `torch.autograd.profiler.profile` and `torch.profiler.profile` session.
@@ -37,6 +39,8 @@ from typing import List, NamedTuple, Optional
 
 import torch
 import torch.autograd.profiler as _profiler
+
+from diffusion_e2e_ft_tpu_torch.utils import graphs
 
 LIMIT = 1 << 16  # spans kept: ~8 a request, so the last ~8,000 requests
 SYNC_WARNING = "synchronizing CUDA operation"  # the sync debug mode's message
@@ -173,12 +177,13 @@ def _alloc_calls(device: torch.device) -> int:
 
 
 class _Request(_Span):
-    """The `request` span; on a CUDA device it counts `syncs` and `allocs`
-    between its open and its close (the counting itself outside its times).
-    The modes it sets are process-wide, so one request at a time counts: a
-    request opened on another thread meanwhile records no counters."""
+    """The `request` span; on a CUDA device it counts `syncs`, `allocs`,
+    `graph_replays` and `graph_misses` between its open and its close (the
+    counting itself outside its times). The modes it sets are process-wide,
+    so one request at a time counts: a request opened on another thread
+    meanwhile records no counters."""
 
-    __slots__ = ("_device", "_mode", "_warnings", "_caught", "_allocs")
+    __slots__ = ("_device", "_mode", "_warnings", "_caught", "_allocs", "_graphs")
 
     def __init__(self, device: Optional[torch.device]):
         super().__init__("request")
@@ -194,6 +199,7 @@ class _Request(_Span):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             self._allocs = _alloc_calls(self._device)
+            self._graphs = dict(graphs.counts)
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -211,7 +217,8 @@ class _Request(_Span):
                     syncs += 1
                 else:  # not ours to swallow
                     warnings.warn_explicit(w.message, w.category, w.filename, w.lineno, source=w.source)
-            self.attrs = {"syncs": syncs, "allocs": allocs}
+            self.attrs = {"syncs": syncs, "allocs": allocs,
+                          **{k: n - self._graphs[k] for k, n in graphs.counts.items()}}
         self._close(t1)
         return False
 
@@ -220,7 +227,8 @@ def request(device=None):
     """The `request` span while a profiler runs and no span is open on this
     thread (a pipeline's `__call__` under `PipelineService.predict` is the
     same request); else the shared no-op. `device` is where the request runs:
-    on a CUDA device the span counts `syncs` and `allocs`."""
+    on a CUDA device the span counts `syncs`, `allocs`, `graph_replays` and
+    `graph_misses`."""
     if not _profiler._is_profiler_enabled or _stack():
         return _NO_SPAN
     device = torch.device(device) if device is not None else None
