@@ -245,9 +245,16 @@ class FeedForward(nn.Module):
 
 
 class LayerNormFP32(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, as flax's: the input cast up, the output back."""
+    """LayerNorm with fp32 statistics, as flax's: the input cast up, the output back.
+
+    On the card an input of the affine's dtype takes one launch: PyTorch's
+    CUDA kernel keeps the statistics and the affine in fp32 and rounds once
+    on the way out, as the casts around an fp32 call do (four launches more
+    a norm)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda and x.dtype == self.weight.dtype:
+            return F.layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
         return F.layer_norm(
             x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps
         ).to(x.dtype)

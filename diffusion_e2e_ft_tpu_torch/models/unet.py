@@ -6,12 +6,18 @@ transformer projections) and GeoWizard's (`UNetConfig.geowizard()`): the
 SD1.5 shape (8 heads per level, cross-attention dim 768, 1x1-conv
 projections), a projection class embedding of the 10-dim task / domain
 switcher added to the time embedding, and joint cross-task self-attention.
+`UNetConfig.sdxl()` is the SDXL-base UNet under the same 8-channel
+conditioning: three levels, transformer stacks 1 / 2 / 10 deep (the mid
+block as deep as the last level), cross-attention over a 2048-wide context
+and diffusers' "text_time" added embedding (a pooled text embedding and the
+sinusoids of six size and crop ids, lifted to the time embedding's width
+and added to it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,7 +43,7 @@ class UNetConfig:
     cross_attention_levels: Tuple[bool, ...] = (True, True, True, False)
     num_attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
     cross_attention_dim: int = 1024
-    transformer_depth: int = 1
+    transformer_depth: Union[int, Tuple[int, ...]] = 1  # blocks a transformer stack, per level (an int: every level)
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     use_linear_projection: bool = True
@@ -46,10 +52,27 @@ class UNetConfig:
     # GeoWizard extensions
     class_embed_proj_dim: Optional[int] = None  # 10 for GeoWizard's switcher
     joint_attention: bool = False
+    # SDXL's added embedding: "text_time" adds linear_2(silu(linear_1([pooled text; sinusoids of the time ids])))
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256  # sinusoid width of each time id
+    addition_embed_input_dim: Optional[int] = None  # the pooled width + 6 x addition_time_embed_dim (2816)
+
+    def __post_init__(self):
+        if len(self.transformer_depths) != len(self.block_out_channels):
+            raise ValueError(f"transformer_depth {self.transformer_depth} does not give one depth a level")
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unsupported addition_embed_type {self.addition_embed_type!r}")
+        if self.addition_embed_type is not None and self.addition_embed_input_dim is None:
+            raise ValueError("addition_embed_type 'text_time' needs addition_embed_input_dim")
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    @property
+    def transformer_depths(self) -> Tuple[int, ...]:
+        d = self.transformer_depth
+        return (d,) * len(self.block_out_channels) if isinstance(d, int) else d
 
     @staticmethod
     def sd2(**kw) -> "UNetConfig":
@@ -68,6 +91,17 @@ class UNetConfig:
         return UNetConfig.sd15(**base)
 
     @staticmethod
+    def sdxl(**kw) -> "UNetConfig":
+        """SDXL-base's UNet (stabilityai/stable-diffusion-xl-base-1.0) with Marigold's 8 input channels."""
+        base = dict(
+            block_out_channels=(320, 640, 1280), cross_attention_levels=(False, True, True),
+            num_attention_heads=(5, 10, 20), cross_attention_dim=2048, transformer_depth=(1, 2, 10),
+            addition_embed_type="text_time", addition_time_embed_dim=256, addition_embed_input_dim=2816,
+        )
+        base.update(kw)
+        return UNetConfig(**base)
+
+    @staticmethod
     def tiny(**kw) -> "UNetConfig":
         """Test-sized config: same topology, 16x fewer channels."""
         base = dict(
@@ -79,10 +113,10 @@ class UNetConfig:
         return UNetConfig(**base)
 
 
-def _transformer(c: UNetConfig, channels: int, heads: int) -> SpatialTransformer:
+def _transformer(c: UNetConfig, channels: int, heads: int, depth: int) -> SpatialTransformer:
     return SpatialTransformer(
         channels, heads, channels // heads, c.cross_attention_dim,
-        depth=c.transformer_depth, groups=c.norm_num_groups,
+        depth=depth, groups=c.norm_num_groups,
         use_linear_projection=c.use_linear_projection, joint_attention=c.joint_attention,
     )
 
@@ -98,7 +132,7 @@ class _DownBlock(nn.Module):
                 ResnetBlock(in_ch if j == 0 else out_ch, out_ch, c.norm_num_groups, c.norm_eps, c.time_embed_dim)
             )
             if c.cross_attention_levels[level]:
-                attentions.append(_transformer(c, out_ch, heads))
+                attentions.append(_transformer(c, out_ch, heads, c.transformer_depths[level]))
         self.resnets = nn.ModuleList(resnets)
         self.attentions = nn.ModuleList(attentions) if attentions else None
         is_last = level == len(c.block_out_channels) - 1
@@ -124,7 +158,7 @@ class _MidBlock(nn.Module):
         self.resnets = nn.ModuleList(
             [ResnetBlock(ch, ch, c.norm_num_groups, c.norm_eps, c.time_embed_dim) for _ in range(2)]
         )
-        self.attentions = nn.ModuleList([_transformer(c, ch, c.num_attention_heads[-1])])
+        self.attentions = nn.ModuleList([_transformer(c, ch, c.num_attention_heads[-1], c.transformer_depths[-1])])
 
     def forward(self, x, temb, context) -> torch.Tensor:
         x = self.resnets[0](x, temb)
@@ -138,12 +172,13 @@ class _UpBlock(nn.Module):
         out_ch = tuple(reversed(c.block_out_channels))[level]
         heads = tuple(reversed(c.num_attention_heads))[level]
         has_attn = tuple(reversed(c.cross_attention_levels))[level]
+        depth = tuple(reversed(c.transformer_depths))[level]
         resnets, attentions = [], []
         for j, skip_ch in enumerate(skip_channels):
             res_in = (in_ch if j == 0 else out_ch) + skip_ch
             resnets.append(ResnetBlock(res_in, out_ch, c.norm_num_groups, c.norm_eps, c.time_embed_dim))
             if has_attn:
-                attentions.append(_transformer(c, out_ch, heads))
+                attentions.append(_transformer(c, out_ch, heads, depth))
         self.resnets = nn.ModuleList(resnets)
         self.attentions = nn.ModuleList(attentions) if attentions else None
         is_last = level == len(c.block_out_channels) - 1
@@ -171,9 +206,10 @@ def _timesteps(timesteps, sample: torch.Tensor) -> torch.Tensor:
 
 
 class UNet2DCondition(graphs.Graphed):
-    """(latent [B,C,H,W], timestep, context [B,L,D][, class vector [B,P]]) ->
-    prediction [B,4,H,W]. Served at a fixed shape, the forward replays a CUDA
-    graph (`utils/graphs.py`)."""
+    """(latent [B,C,H,W], timestep, context [B,L,D][, class vector [B,P]]
+    [, text_embeds [B,E], time_ids [B,6]]) -> prediction [B,4,H,W]. Served at
+    a fixed shape, the forward replays a CUDA graph (`utils/graphs.py`), with
+    every tensor input among its static inputs."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
@@ -182,6 +218,9 @@ class UNet2DCondition(graphs.Graphed):
         self.time_embedding = TimestepEmbedding(ch[0], c.time_embed_dim)
         self.class_embedding = (
             TimestepEmbedding(c.class_embed_proj_dim, c.time_embed_dim) if c.class_embed_proj_dim is not None else None
+        )
+        self.add_embedding = (
+            TimestepEmbedding(c.addition_embed_input_dim, c.time_embed_dim) if c.addition_embed_type else None
         )
         self.conv_in = nn.Conv2d(c.in_channels, ch[0], 3, padding=1)
 
@@ -211,11 +250,14 @@ class UNet2DCondition(graphs.Graphed):
         timesteps: torch.Tensor,
         encoder_hidden_states: torch.Tensor,
         class_labels: Optional[torch.Tensor] = None,
+        text_embeds: Optional[torch.Tensor] = None,
+        time_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         return self._graphs(self, self._forward, sample, _timesteps(timesteps, sample), encoder_hidden_states,
-                            class_labels)
+                            class_labels, text_embeds, time_ids)
 
-    def _forward(self, sample, timesteps, encoder_hidden_states, class_labels) -> torch.Tensor:
+    def _forward(self, sample, timesteps, encoder_hidden_states, class_labels=None, text_embeds=None,
+                 time_ids=None) -> torch.Tensor:
         c = self.config
         dtype = self.conv_in.weight.dtype
         t_feat = timestep_embedding(
@@ -227,6 +269,14 @@ class UNet2DCondition(graphs.Graphed):
             if class_labels is None:
                 raise ValueError("this UNet config requires class_labels")
             temb = temb + self.class_embedding(class_labels.to(dtype))
+        if self.add_embedding is not None:
+            if text_embeds is None or time_ids is None:
+                raise ValueError("this UNet config requires text_embeds and time_ids")
+            time_feat = timestep_embedding(
+                time_ids.flatten(), c.addition_time_embed_dim,
+                flip_sin_to_cos=c.flip_sin_to_cos, downscale_freq_shift=c.freq_shift,
+            ).reshape(text_embeds.shape[0], -1)
+            temb = temb + self.add_embedding(torch.cat([text_embeds.float(), time_feat], dim=-1).to(dtype))
         context = encoder_hidden_states.to(dtype)
         x = self.conv_in(sample.to(dtype))
 

@@ -184,8 +184,9 @@ class GeoWizardPipeline:
         x0 = None
         for t, prev_t in zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist()):
             model_out = self.unet(torch.cat([rgb_latent2, latent], dim=1), t, context, class_vec)
-            out = sched_ops.ddim_step(cfg, self.schedule, model_out.float(), t, prev_t, latent.float())
-            latent, x0 = out.prev_sample.to(self.dtype), out.pred_original_sample
+            with trace.span("scheduler"):
+                out = sched_ops.ddim_step(cfg, self.schedule, model_out.float(), t, prev_t, latent.float())
+                latent, x0 = out.prev_sample.to(self.dtype), out.pred_original_sample
         decoded = self.vae.decode(x0.to(self.dtype) / self.latent_scale_factor).float()
         decoded = decoded.permute(0, 2, 3, 1)  # [2N, H, W, 3]
         depth_dec, normal_dec = decoded[:n], decoded[n:]

@@ -51,8 +51,11 @@ def _find_weights(subdir: str) -> str:
 
 
 def unet_config_from_hf(cfg: Dict[str, Any]) -> UNetConfig:
-    """The UNet config of an HF `config.json`. GeoWizard's joint attention is a
-    runtime flag, not an HF field: `load_geowizard_pipeline` sets it."""
+    """The UNet config of an HF `config.json`: a list `transformer_layers_per_block`
+    gives each level its depth, and `addition_embed_type` "text_time" (SDXL)
+    the added embedding over `projection_class_embeddings_input_dim` inputs.
+    GeoWizard's joint attention is a runtime flag, not an HF field:
+    `load_geowizard_pipeline` sets it."""
     down_types = cfg.get("down_block_types", ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"])
     heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", 8)
     if isinstance(heads, int):
@@ -66,7 +69,7 @@ def unet_config_from_hf(cfg: Dict[str, Any]) -> UNetConfig:
         cross_attention_levels=tuple("CrossAttn" in t for t in down_types),
         num_attention_heads=tuple(heads),
         cross_attention_dim=cfg.get("cross_attention_dim", 1024),
-        transformer_depth=depth if isinstance(depth, int) else 1,
+        transformer_depth=depth if isinstance(depth, int) else tuple(depth),
         norm_num_groups=cfg.get("norm_num_groups", 32),
         norm_eps=cfg.get("norm_eps", 1e-5),
         use_linear_projection=cfg.get("use_linear_projection", False),
@@ -74,6 +77,11 @@ def unet_config_from_hf(cfg: Dict[str, Any]) -> UNetConfig:
         freq_shift=cfg.get("freq_shift", 0),
         class_embed_proj_dim=cfg.get("projection_class_embeddings_input_dim")
         if cfg.get("class_embed_type") == "projection"
+        else None,
+        addition_embed_type=cfg.get("addition_embed_type"),
+        addition_time_embed_dim=cfg.get("addition_time_embed_dim") or 256,
+        addition_embed_input_dim=cfg.get("projection_class_embeddings_input_dim")
+        if cfg.get("addition_embed_type")
         else None,
     )
 
@@ -119,7 +127,8 @@ def unet_config_to_hf(c: UNetConfig) -> Dict[str, Any]:
         "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D" for a in reversed(c.cross_attention_levels)],
         "attention_head_dim": list(c.num_attention_heads),
         "cross_attention_dim": c.cross_attention_dim,
-        "transformer_layers_per_block": c.transformer_depth,
+        "transformer_layers_per_block": c.transformer_depth if isinstance(c.transformer_depth, int)
+        else list(c.transformer_depth),
         "norm_num_groups": c.norm_num_groups,
         "norm_eps": c.norm_eps,
         "use_linear_projection": c.use_linear_projection,
@@ -133,6 +142,10 @@ def unet_config_to_hf(c: UNetConfig) -> Dict[str, Any]:
     if c.class_embed_proj_dim is not None:
         out["class_embed_type"] = "projection"
         out["projection_class_embeddings_input_dim"] = c.class_embed_proj_dim
+    if c.addition_embed_type is not None:
+        out["addition_embed_type"] = c.addition_embed_type
+        out["addition_time_embed_dim"] = c.addition_time_embed_dim
+        out["projection_class_embeddings_input_dim"] = c.addition_embed_input_dim
     return out
 
 

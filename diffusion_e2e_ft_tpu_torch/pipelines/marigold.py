@@ -13,7 +13,13 @@ batched natively (the JAX package maps a batch-1 graph over them, for a TPU
 layout problem), and ensembles the members (`ops/ensemble.py`) with their
 uncertainty. `with_mesh` splits each chunk's members over several devices.
 Under a profiler session `__call__` records the spans of `utils/trace.py`:
-`request` ⊃ `pre` (to the device body), each chunk's `infer`, `post`.
+`request` ⊃ `pre` (to the device body), each chunk's `infer` (⊃ `encode`,
+each step's `unet` and `scheduler`, `decode`), `post`.
+
+An SDXL-shaped UNet (`UNetConfig.sdxl()`, the "text_time" added embedding)
+takes the pooled text embedding given at construction and the time ids
+(H, W, 0, 0, H, W) of the processing size, made once a size; the latents
+are scaled by the VAE's own `scaling_factor` (SD 0.18215, SDXL 0.13025).
 """
 
 from __future__ import annotations
@@ -80,8 +86,6 @@ class MarigoldPipeline:
     Parameters are cast to `dtype` (bf16 or fp32) and moved to `device`, the
     card unless the caller asks for another."""
 
-    latent_scale_factor = 0.18215
-
     def __init__(
         self,
         unet: UNet2DCondition,
@@ -89,6 +93,7 @@ class MarigoldPipeline:
         scheduler_config: sched_ops.SchedulerConfig,
         empty_text_embed,  # [1, L, cross_attention_dim]
         *,
+        pooled_text_embed=None,  # [1, E]: the empty prompt's pooled embedding, for a "text_time" UNet only
         device="cuda",
         dtype: torch.dtype = torch.float32,
         scheduler_type: str = "ddim",
@@ -103,7 +108,29 @@ class MarigoldPipeline:
         self.scheduler_config = scheduler_config
         self.schedule = sched_ops.make_schedule(scheduler_config, device=self.device)
         self.empty_text_embed = torch.as_tensor(empty_text_embed).to(self.device, dtype)
+        if (getattr(unet, "add_embedding", None) is None) != (pooled_text_embed is None):
+            raise ValueError("a pooled text embedding goes with a UNet with the text-time embedding, and only there")
+        self.pooled_text_embed = (
+            None if pooled_text_embed is None else torch.as_tensor(pooled_text_embed).to(self.device, dtype)
+        )
+        self._time_ids = {}  # (h, w) -> [1, 6] float32 on the device
         self._mesh, self._replicas = None, None  # with_mesh's mesh and replicas, in mesh order
+
+    @property
+    def latent_scale_factor(self) -> float:
+        return self.vae.config.scaling_factor
+
+    def _added_cond(self, hw, batch: int) -> dict:
+        """The UNet's added-embedding inputs for a processing size: none, or
+        the pooled text embedding and the time ids (original size, crop
+        origin, target size, all the processing size)."""
+        if self.pooled_text_embed is None:
+            return {}
+        hw = tuple(hw)
+        if hw not in self._time_ids:
+            self._time_ids[hw] = torch.tensor([[*hw, 0, 0, *hw]], dtype=torch.float32, device=self.device)
+        return {"text_embeds": self.pooled_text_embed.expand(batch, -1),
+                "time_ids": self._time_ids[hw].expand(batch, -1)}
 
     def with_mesh(self, mesh) -> "MarigoldPipeline":
         """Split each call's ensemble members over `mesh` (`parallel.make_mesh`):
@@ -124,6 +151,8 @@ class MarigoldPipeline:
         rep.unet, rep.vae = frozen_copy(self.unet, device), frozen_copy(self.vae, device)
         rep.schedule = sched_ops.make_schedule(self.scheduler_config, device=device)
         rep.empty_text_embed = self.empty_text_embed.to(device)
+        rep.pooled_text_embed = None if self.pooled_text_embed is None else self.pooled_text_embed.to(device)
+        rep._time_ids = {}
         return rep
 
     def _infer_members(self, rgb, num_steps, normals, latent0, step_noise) -> torch.Tensor:
@@ -198,18 +227,20 @@ class MarigoldPipeline:
         b = latent.shape[0]
         rgb_latent = rgb_latent.expand(b, -1, -1, -1)
         context = self.empty_text_embed.expand(b, -1, -1)
+        added = self._added_cond(x.shape[2:], b)
         x0 = None
         for i, (t, prev_t) in enumerate(zip(plan.timesteps.tolist(), plan.prev_timesteps.tolist())):
-            model_out = self.unet(torch.cat([rgb_latent, latent], dim=1), t, context).float()
-            args = (cfg, self.schedule, model_out, t, prev_t, latent.float())
-            if lcm:
-                out = sched_ops.lcm_step(*args, noise=step_noise[i] if stochastic else None,
-                                         is_last=i == num_steps - 1)
-            elif stochastic:
-                out = sched_ops.ddpm_step(*args, noise=step_noise[i])
-            else:
-                out = sched_ops.ddim_step(*args)
-            latent, x0 = out.prev_sample.to(self.dtype), out.pred_original_sample
+            model_out = self.unet(torch.cat([rgb_latent, latent], dim=1), t, context, **added).float()
+            with trace.span("scheduler"):
+                args = (cfg, self.schedule, model_out, t, prev_t, latent.float())
+                if lcm:
+                    out = sched_ops.lcm_step(*args, noise=step_noise[i] if stochastic else None,
+                                             is_last=i == num_steps - 1)
+                elif stochastic:
+                    out = sched_ops.ddpm_step(*args, noise=step_noise[i])
+                else:
+                    out = sched_ops.ddim_step(*args)
+                latent, x0 = out.prev_sample.to(self.dtype), out.pred_original_sample
         decoded = self.vae.decode(x0.to(self.dtype) / self.latent_scale_factor).float()
         decoded = decoded.permute(0, 2, 3, 1)  # [B, H, W, 3]
         if normals:

@@ -24,7 +24,7 @@ UNET = dict(block_out_channels=(32, 32), cross_attention_levels=(True, False), n
             layers_per_block=1, norm_num_groups=8)
 VAE = VAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1, norm_num_groups=4)
 MARIGOLD_TREE = {"request": None, "pre": "request", "infer": "request", "encode": "infer", "unet": "infer",
-                 "decode": "infer", "post": "request"}
+                 "scheduler": "infer", "decode": "infer", "post": "request"}
 
 
 @pytest.fixture(scope="module")
